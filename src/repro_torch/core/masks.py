@@ -1,0 +1,24 @@
+"""Bitmask construction for SAMD words (paper Fig. 3), as Python ints."""
+from __future__ import annotations
+
+from functools import lru_cache
+
+
+@lru_cache(maxsize=None)
+def build_mask(start: int, width: int, stride: int,
+               word_bits: int = 32) -> int:
+    """Lay a run of ``width`` ones at every ``stride`` bits, from ``start``."""
+    if width <= 0 or stride <= 0:
+        raise ValueError(
+            f"width/stride must be positive, got {width}/{stride}"
+        )
+    sub_mask = (1 << width) - 1
+    mask = 0
+    for i in range(start, word_bits, stride):
+        mask |= sub_mask << i
+    return mask & ((1 << word_bits) - 1)
+
+
+def value_mask(value_bits: int, lane_width: int, word_bits: int = 32) -> int:
+    """Low ``value_bits`` of each ``lane_width``-bit lane (value portion)."""
+    return build_mask(0, value_bits, lane_width, word_bits)

@@ -1,0 +1,62 @@
+"""Kernel entry points: a CUDA tensor launches the hand-written kernel, a
+CPU tensor runs its plain PyTorch version.
+
+The choice follows the device of the tensor alone. There is no fallback:
+on a CUDA tensor a kernel that cannot be built or launched raises, and a
+tensor on any other device raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import samd_matmul as _mm
+from repro_torch.quant.config import QuantConfig
+
+KERNELS = (_mm.KERNEL, _pa.KERNEL)
+
+
+def build_kernels() -> None:
+    """Build every kernel now, one nvcc per source, all in parallel."""
+    _build.build_all(KERNELS)
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def samd_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                k: int, cfg: QuantConfig, *,
+                signed: bool = True) -> torch.Tensor:
+    """Packed-weight matmul: x[..., K] @ dequant(packed)[K, N]."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _on_cuda(x2):
+        out = _mm.samd_matmul_cuda(x2, packed, scale, k, cfg, signed=signed)
+    else:
+        out = _mm.samd_matmul_plain(x2, packed, scale, k, cfg, signed=signed)
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, q_pos, *,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """Fused decode attention over the paged KV pool: q [B, H, dh] ->
+    [B, H, dh]. Pass ``k_scale``/``v_scale`` iff the pools are packed."""
+    fn = (_pa.paged_decode_attention_cuda if _on_cuda(q)
+          else _pa.paged_decode_attention_plain)
+    return fn(q, k_pages, v_pages, page_table, q_pos,
+              k_scale=k_scale, v_scale=v_scale)

@@ -1,0 +1,296 @@
+"""Transformer building blocks for the dense decoder (the dense subset of
+``repro/models/layers.py``): quantized linears, RMSNorm, RoPE, GQA
+attention over the paged KV pool, MLPs.
+
+Norms, softmax and attention probabilities run in f32; matmul outputs
+stay bf16, as in the reference.
+
+The paged KV pool is written IN PLACE (the reference returns a new pool
+and donates the old one).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.quant.config import QuantConfig
+from repro_torch.quant.packing import (
+    pack_int8_lanes, qmatmul, unpack_int8_lanes,
+)
+
+MASK_VALUE = -1e30
+
+
+# ---------------------------------------------------------------------------
+# linear (+ quantized linear) application
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """SAMD-packed weight: int32 words (uint32 bits) + per-channel scale.
+
+    Packed along its reduction axis and stored 2D as
+    [ceil(K/values_per_word), prod(rest)]; ``orig_shape``/``axis`` give
+    the full layout.
+    """
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    orig_shape: tuple
+    axis: int
+    cfg: QuantConfig
+
+    @property
+    def k(self) -> int:
+        return self.orig_shape[self.axis]
+
+
+def apply_linear(w, x: torch.Tensor) -> torch.Tensor:
+    """x[..., K] @ w[K, N] where w is a tensor or a [K, N] QuantizedTensor
+    (every packed weight of the dense decoder is 2D, packed along K)."""
+    if isinstance(w, QuantizedTensor):
+        return qmatmul(x, w.packed, w.scale, w.k, w.cfg)
+    return torch.matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [..., S] -> (sin, cos) [..., S, head_dim//2] f32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / theta ** exps  # a Python base: no host->device copy
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
+    """x [..., S, H, D]; sin/cos [..., S, D//2]."""
+    half = x.shape[-1] // 2
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    s = sin[..., None, :]  # broadcast over heads
+    c = cos[..., None, :]
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _attend_chunk(q, k, v, q_pos, k_pos, scale):
+    """q [B,Cq,Hkv,G,dh]; k/v [B,S,Hkv,dh] -> [B,Cq,Hkv,G,dh].
+
+    Masks keys with k_pos > q_pos (causal) or k_pos < 0 (unfilled). The
+    probabilities stay f32 through the PV product and only the output is
+    rounded, matching the f32 accumulation of the paged decode kernel.
+    """
+    scores = torch.einsum("bqhgd,bshd->bhgqs", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    mask = (k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]) & (
+        k_pos[:, None, None, None, :] >= 0
+    )
+    scores = torch.where(mask, scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", probs, v.to(torch.float32))
+    return out.to(v.dtype)
+
+
+def attention(q, k, v, q_pos, k_pos, chunk: int = 1024):
+    """Causal GQA attention, query-chunked to bound live memory.
+
+    q [B, Sq, H, dh]; k/v [B, Sk, Hkv, dh]; q_pos [B, Sq]; k_pos [B, Sk]
+    (negative = masked).
+    """
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    scale = 1.0 / (dh ** 0.5)
+    outs = [
+        _attend_chunk(qg[:, c:c + chunk], k, v, q_pos[:, c:c + chunk],
+                      k_pos, scale)
+        for c in range(0, sq, chunk)
+    ]
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (block tables over a global page pool)
+# ---------------------------------------------------------------------------
+#
+# Each attention layer owns pools [P, page_size, ...] shared by all slots.
+# A host-managed page table [B, n_pp] maps a slot's logical block to a pool
+# page; -1 marks an unallocated block. Token t of slot b lives at page
+# page_table[b, t // page_size], offset t % page_size. Validity is derived
+# from the page table plus causality, as in the reference.
+#
+# The LAST page of every pool is scratch: no page table names it, and
+# writes the reference drops (padding, unallocated pages) land there. A
+# boolean filter would drop them too, but it makes the host wait for the
+# device on every write (the result's size depends on device data); the
+# scratch page keeps the scatter's shape fixed and the stream unblocked.
+
+def _paged_flat_index(page_table, positions, page_size: int, oob: int):
+    """Flat pool index [B, S] of each (row, position); a negative
+    position, a block beyond the table or an unallocated page maps to
+    ``oob`` instead (PyTorch would raise on an out-of-range index, or
+    wrap a -1, where the reference drops the write)."""
+    n_pp = page_table.shape[1]
+    pos = positions.to(torch.int64)
+    block = torch.div(pos, page_size, rounding_mode="floor")
+    page = torch.gather(page_table.to(torch.int64), 1,
+                        block.clamp(0, n_pp - 1))
+    ok = (pos >= 0) & (block < n_pp) & (page >= 0)
+    return torch.where(ok, page * page_size + pos % page_size, oob)
+
+
+def _paged_write(pool, val, page_table, positions, page_size: int) -> None:
+    """Scatter ``val`` [B, S, ...] into ``pool`` [P + 1, page_size, ...]
+    in place at the slots named by (page_table, positions); writes to
+    invalid positions land in the scratch page P."""
+    p = pool.shape[0]
+    flat = pool.view((p * page_size,) + tuple(pool.shape[2:]))
+    idx = _paged_flat_index(page_table, positions, page_size,
+                            (p - 1) * page_size)
+    flat[idx.reshape(-1)] = val.reshape(
+        (-1,) + tuple(val.shape[2:])).to(pool.dtype)
+
+
+def _paged_gather(pool, page_table, page_size: int):
+    """Each row's pages as a contiguous [B, n_pp * page_size, ...] view in
+    logical order. Unallocated blocks read page 0; their keys are masked
+    by ``_paged_key_positions``."""
+    b, n_pp = page_table.shape
+    safe = page_table.to(torch.int64).clamp(0, pool.shape[0] - 1)
+    pages = pool[safe.reshape(-1)]
+    return pages.reshape((b, n_pp * page_size) + tuple(pool.shape[2:]))
+
+
+def _paged_key_positions(page_table, page_size: int):
+    """k_pos [B, n_pp * page_size] for the gathered view: the logical
+    position for allocated blocks, -1 (masked) for unallocated ones."""
+    b, n_pp = page_table.shape
+    iota = torch.arange(n_pp * page_size, dtype=torch.int64,
+                        device=page_table.device)[None, :]
+    valid = torch.repeat_interleave(page_table >= 0, page_size, dim=1)
+    return torch.where(valid, iota, -1)
+
+
+def _gathered_pool_kv(pool: dict, page_table, page_size: int, dtype):
+    """Dense per-row gather of a KV pool into [B, n_pp * page_size, Hkv,
+    dh] K/V; packed pools are lane-unpacked and rescaled after the
+    gather."""
+    if pool["k"].dtype == torch.int32:
+        out = []
+        for name in ("k", "v"):
+            g = _paged_gather(pool[name], page_table, page_size)
+            s = _paged_gather(pool[name + "_scale"], page_table, page_size)
+            out.append((unpack_int8_lanes(g).to(torch.float32)
+                        * s[..., None]).to(dtype))
+        return tuple(out)
+    return (_paged_gather(pool["k"], page_table, page_size).to(dtype),
+            _paged_gather(pool["v"], page_table, page_size).to(dtype))
+
+
+def _quant_kv(t: torch.Tensor):
+    """int8 KV write: per-(token, kv-head) symmetric scale."""
+    tf = t.to(torch.float32)
+    amax = tf.abs().amax(dim=-1)
+    scale = amax.clamp(min=1e-6) / 127.0
+    qv = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return qv.to(torch.int8), scale
+
+
+def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+                    *, kv_cache=None, page_table=None, page_size: int = 0,
+                    paged_attn: str = "gather"):
+    """norm -> qkv -> rope -> attend -> out; returns the residual delta.
+
+    With ``kv_cache`` (one layer's pools) and ``page_table``, this token
+    block's K/V are written into the pool at each token's logical
+    position (bf16, or SAMD-packed int8 lanes + scales when the pool is
+    int32) before attention. ``paged_attn="fused"`` with one query per
+    slot (decode) attends straight off the pool through
+    ``kernels.ops.paged_decode_attention``; otherwise (prefill, or the
+    "gather" reference) the slots' pages are gathered into a dense view.
+    Without a cache, attention is causal over the block itself.
+    """
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = apply_linear(p["wq"], xn)
+    k = apply_linear(p["wk"], xn)
+    v = apply_linear(p["wv"], xn)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    sin, cos = rope_tables(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+
+    if kv_cache is None:
+        att = attention(q, k, v, positions, positions, chunk=cfg.attn_chunk)
+    else:
+        pool = kv_cache
+        if pool["k"].dtype == torch.int32:
+            # pack the int8 lanes BEFORE the scatter: the pool only ever
+            # holds packed words
+            for name, t in (("k", k), ("v", v)):
+                tq, ts = _quant_kv(t)
+                _paged_write(pool[name], pack_int8_lanes(tq), page_table,
+                             positions, page_size)
+                _paged_write(pool[name + "_scale"], ts, page_table,
+                             positions, page_size)
+        else:
+            _paged_write(pool["k"], k, page_table, positions, page_size)
+            _paged_write(pool["v"], v, page_table, positions, page_size)
+        if paged_attn == "fused" and s == 1:
+            att = kernel_ops.paged_decode_attention(
+                q[:, 0].contiguous(), pool["k"], pool["v"], page_table,
+                positions[:, 0].to(torch.int32).contiguous(),
+                k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+            )[:, None]
+        else:
+            k_pos = _paged_key_positions(page_table, page_size)
+            k_full, v_full = _gathered_pool_kv(pool, page_table, page_size,
+                                               q.dtype)
+            att = attention(q, k_full, v_full, positions, k_pos,
+                            chunk=cfg.attn_chunk)
+    return apply_linear(p["wo"], att.reshape(b, s, h * dh))
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    if cfg.activation == "swiglu":
+        gate = apply_linear(p["wg"], xn)
+        up = apply_linear(p["wu"], xn)
+        hid = torch.nn.functional.silu(gate.to(torch.float32)).to(
+            x.dtype) * up
+    else:
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} is not ported yet")
+    return apply_linear(p["wd"], hid)

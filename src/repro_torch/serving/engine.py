@@ -1,0 +1,760 @@
+"""Batched serving engine: paged KV pool + one ragged decode step per tick.
+
+The PyTorch port of the paged path of ``repro/serving/engine.py``. The
+scheduling contract is the reference's:
+
+  * fixed ``max_batch`` decode slots; host-side slot state (position,
+    last token, active flag, page table) lives in numpy and goes to the
+    device once per tick;
+  * admission runs ONE bucket-padded batched prefill over all admitted
+    requests, writing K/V straight into their pages. A prompt with
+    ``len(prompt) >= max_len`` is rejected with ``error`` set;
+  * every tick runs ONE position-ragged decode step over the whole slot
+    set; attention reads the page pool through the page table with the
+    fused paged decode kernel; sampling happens on the device;
+  * finished slots free at once and are refilled from the queue;
+  * each layer owns ``num_pages`` KV pages of ``page_size`` tokens (bf16,
+    or SAMD-packed int8 lanes when ``quant.kv_bits == 8``), refcounted
+    and prefix-shared: admission maps a prompt's leading full blocks that
+    are resident onto the same pages, and a prompt that ends inside a
+    resident block gets a copy-on-write fork of it;
+  * ``admission="reserve"`` (default) reserves each request's worst-case
+    growth at admission, so mid-decode grants never fail;
+    ``"optimistic"`` does not, and a dry pool PREEMPTS the youngest
+    resident request (recompute-resume, token-identical); only a request
+    that cannot fit the pool alone is retired ``truncated``;
+  * ``prefix_retain=N`` parks up to N refcount-0 prefix pages in an LRU
+    pool so sharing survives non-overlapping residencies;
+  * ``max_queue`` bounds the queue (overflow is rejected with ``error``).
+
+Not ported yet: speculative decoding, the per-slot KV ring
+(``kv_mode="ring"``), the per-row reference decode and the admission-time
+lane-safety check (``verify=``).
+
+The KV pools (``self.cache``) are written in place by every step (the
+reference donates them to its jitted steps instead).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models.model import (
+    build_template, copy_paged_page, init_paged_cache,
+)
+from repro_torch.models.quantize import quantize_params
+from repro_torch.models.spec import init_from_spec
+from repro_torch.quant.config import QuantConfig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # [T] int32
+    max_tokens: int = 16
+    eos_id: Optional[int] = None
+    generated: list = dataclasses.field(default_factory=list)
+    truncated: bool = False     # force-retired (cache/page-pool exhaustion)
+    # error != None: rejected before prefill ("queue full ...", "prompt
+    # length ...", "request needs ... pages") or retired when
+    # run_to_completion's tick budget ran out ("tick budget exhausted")
+    error: Optional[str] = None
+    # set while a preempted request waits for recompute-resume
+    resume_prompt: Optional[np.ndarray] = None
+    _seq: int = -1
+
+    @property
+    def done(self) -> bool:
+        if len(self.generated) >= self.max_tokens:
+            return True
+        return bool(self.generated and self.eos_id is not None
+                    and self.generated[-1] == self.eos_id)
+
+
+class PageAllocator:
+    """Host-side refcounted free list over the global KV page pool (the
+    reference's allocator, ported as is).
+
+    * ALLOCATION: ``alloc`` grants pages at refcount 1; ``release`` drops
+      one ref per page and returns the pages whose refcount reached zero.
+    * SHARING: ``share`` bumps the refcount of a held page.
+    * RESERVATIONS: pages promised to admitted requests for their decode
+      growth; they stay in the free list but no admission may take them.
+    * RETENTION (``retain_limit`` > 0): refcount-0 pages released with
+      ``retain=True`` park in an LRU pool; they count as available and
+      are evicted LRU-first (``on_evict`` tells the owner) when a grant
+      outgrows the free list; ``revive`` re-references one.
+    """
+
+    def __init__(self, num_pages: int, retain_limit: int = 0):
+        self.num_pages = num_pages
+        self.retain_limit = int(retain_limit)
+        self._free = list(range(num_pages - 1, -1, -1))
+        self._retained: collections.OrderedDict = collections.OrderedDict()
+        self.refcount = np.zeros(num_pages, np.int32)
+        self.reserved = 0
+        self.on_evict = None  # callable(list[int]) -> None, or None
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def retained_pages(self) -> int:
+        return len(self._retained)
+
+    @property
+    def held_pages(self) -> int:
+        """Pages with at least one holder (retained pages are not held)."""
+        return int((self.refcount > 0).sum())
+
+    @property
+    def available(self) -> int:
+        """Pages an admission may take or reserve right now."""
+        return len(self._free) + len(self._retained) - self.reserved
+
+    def _evict(self, n: int) -> None:
+        pages = [self._retained.popitem(last=False)[0] for _ in range(n)]
+        self._free.extend(pages)
+        if self.on_evict is not None:
+            self.on_evict(pages)
+
+    def _grant(self, n: int) -> list:
+        if len(self._free) < n:
+            self._evict(n - len(self._free))
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            assert self.refcount[p] == 0, ("double grant", p)
+            self.refcount[p] = 1
+        return pages
+
+    def alloc(self, n: int, reserve: int = 0) -> Optional[list]:
+        """Take ``n`` pages and reserve ``reserve`` more, or None (taking
+        nothing) unless all ``n + reserve`` are available."""
+        if n + reserve > self.available:
+            return None
+        self.reserved += reserve
+        return self._grant(n)
+
+    def claim_reserved(self, n: int = 1) -> list:
+        """Turn reserved pages into real ones (never fails)."""
+        assert (
+            0 <= n <= self.reserved
+            <= len(self._free) + len(self._retained)
+        )
+        self.reserved -= n
+        return self._grant(n)
+
+    def cancel_reservation(self, n: int) -> None:
+        self.reserved -= n
+        assert self.reserved >= 0
+
+    def share(self, page: int) -> None:
+        assert self.refcount[page] >= 1, ("share of unheld page", page)
+        self.refcount[page] += 1
+
+    def is_retained(self, page: int) -> bool:
+        return page in self._retained
+
+    def revive(self, page: int) -> None:
+        del self._retained[page]
+        assert self.refcount[page] == 0, ("revive of held page", page)
+        self.refcount[page] = 1
+
+    def release(self, pages, retain: bool = False) -> list:
+        """Drop one reference per page; returns the pages actually FREED
+        (retained ones are not)."""
+        freed = []
+        for p in pages:
+            p = int(p)
+            assert self.refcount[p] >= 1, ("release of unheld page", p)
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                if retain and self.retain_limit > 0:
+                    if len(self._retained) >= self.retain_limit:
+                        self._evict(1)
+                    self._retained[p] = None
+                else:
+                    self._free.append(p)
+                    freed.append(p)
+        return freed
+
+
+def _bucket_len(max_prompt: int, max_len: int) -> int:
+    """Smallest power-of-two prefill bucket >= the longest admitted prompt
+    (floor 8, capped at the cache length)."""
+    lb = 8
+    while lb < max_prompt:
+        lb *= 2
+    return min(lb, max_len)
+
+
+class ServingEngine:
+    def __init__(self, cfg: ArchConfig, params=None, *,
+                 quant: QuantConfig | None = None,
+                 max_batch: int = 4, max_len: int = 512, seed: int = 0,
+                 temperature: float = 0.0,
+                 page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 admission: str = "reserve",
+                 prefix_sharing: bool = True,
+                 prefix_retain: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 device="cuda"):
+        """``params`` are unquantized weights (``build_template`` layout;
+        random from ``seed`` when None); ``quant`` packs them here."""
+        if admission not in ("reserve", "optimistic"):
+            raise ValueError(f"unknown admission policy {admission!r}")
+        if max_queue is not None and max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.temperature = float(temperature)
+        self.admission = admission
+        self.prefix_sharing = bool(prefix_sharing)
+        self.page_size = page_size
+        self.pages_per_slot = -(-max_len // page_size)
+        if num_pages is None:
+            num_pages = max_batch * self.pages_per_slot
+        self.num_pages = num_pages
+        template = build_template(cfg)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_from_spec(template, gen, device=self.device)
+        self.quant = quant or QuantConfig(enabled=False)
+        if self.quant.enabled:
+            params = quantize_params(params, template, self.quant)
+        self.params = params
+        self._kv_bits = self.quant.kv_bits if self.quant.enabled else None
+        self._decode_step = steps_mod.make_paged_ragged_serve_step(
+            cfg, max_len, page_size)
+        self._prefill_step = steps_mod.make_paged_prefill_step(
+            cfg, page_size)
+        self.cache = self._init_cache()
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            seed ^ 0x5EED)
+        self.max_queue = max_queue
+        self.queue: collections.deque[Request] = collections.deque()
+        self.slots: list[Optional[Request]] = [None] * max_batch
+        self.slot_pos = np.zeros(max_batch, np.int32)
+        self.slot_next = np.zeros(max_batch, np.int32)
+        self.active = np.zeros(max_batch, bool)
+        self.finished: list[Request] = []
+        self.prefix_retain = (
+            int(prefix_retain) if prefix_retain and self.prefix_sharing
+            else 0
+        )
+        self._allocator = PageAllocator(num_pages,
+                                        retain_limit=self.prefix_retain)
+        self._allocator.on_evict = self._deregister
+        self.page_table = np.full((max_batch, self.pages_per_slot), -1,
+                                  np.int32)
+        self.slot_pages = np.zeros(max_batch, np.int32)     # allocated count
+        self.slot_reserved = np.zeros(max_batch, np.int32)  # growth pages
+        self._slot_seq = np.zeros(max_batch, np.int64)      # admission order
+        self._seq_counter = 0
+        # prefix index: token-prefix bytes through a FULL block -> page,
+        # plus the reverse maps for deregistration and COW tail matching
+        self._prefix_index: dict[bytes, int] = {}
+        self._page_key: dict[int, bytes] = {}
+        self._page_parent: dict[int, bytes] = {}
+        self._page_block: dict[int, np.ndarray] = {}
+        self._prefix_children: dict[bytes, set] = {}
+        self._prefix_ready: set[int] = set()  # KV written on device
+        self.stats = {
+            "decode_steps": 0,          # ragged decode invocations
+            "prefill_calls": 0,         # batched prefill invocations
+            "page_grants": 0,           # incremental mid-decode page allocs
+            "prefix_hits": 0,           # pages mapped shared at admission
+            "prefix_tokens_saved": 0,   # prompt tokens prefill skipped
+            "retained_hits": 0,         # refcount-0 retained pages revived
+            "cow_forks": 0,             # copy-on-write page copies
+            "preemptions": 0,           # slots preempted for recompute
+            "oop_retired": 0,           # slots truncated on pool exhaustion
+            "rejected": 0,              # requests refused before prefill
+            "rejected_queue_full": 0,   # subset of rejected: queue bound
+            "tick_budget_exhausted": 0,  # stragglers errored at max_ticks
+            "peak_pages_used": 0,       # max pages with refcount > 0
+        }
+
+    def _init_cache(self):
+        return init_paged_cache(self.cfg, self.num_pages, self.page_size,
+                                kv_bits=self._kv_bits, device=self.device)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- prefix index ------------------------------------------------------
+    def _written_tokens(self, i: int) -> np.ndarray:
+        """Tokens written at positions 0..slot_pos-1 of slot ``i``: the
+        prompt plus every generated token but the last (sampled, written
+        by the NEXT tick), so ``slot_pos == len(prompt) + len(generated)
+        - 1`` for every active slot."""
+        req = self.slots[i]
+        toks = np.asarray(req.prompt, np.int32)
+        if req.generated:
+            toks = np.concatenate(
+                [toks, np.asarray(req.generated[:-1], np.int32)])
+        assert len(toks) == int(self.slot_pos[i]), (len(toks), i)
+        return toks
+
+    @staticmethod
+    def _eff_prompt(req: Request) -> np.ndarray:
+        """The tokens this admission makes resident: the prompt, or on
+        recompute-resume the prompt + already-generated tokens."""
+        src = (
+            req.resume_prompt
+            if req.resume_prompt is not None
+            else req.prompt
+        )
+        return np.asarray(src, np.int32)
+
+    def _register_block(self, eff: np.ndarray, b: int, page: int) -> bool:
+        """Index full block ``b`` of ``eff`` (its page now holds it). Keys
+        are the raw token-prefix bytes THROUGH the block, so a hit means
+        the donor's whole history matches. False if already indexed."""
+        ps = self.page_size
+        key = eff[: (b + 1) * ps].tobytes()
+        if key in self._prefix_index:
+            return False
+        parent = eff[: b * ps].tobytes()
+        self._prefix_index[key] = page
+        self._page_key[page] = key
+        self._page_parent[page] = parent
+        self._page_block[page] = eff[b * ps:(b + 1) * ps].copy()
+        self._prefix_children.setdefault(parent, set()).add(page)
+        return True
+
+    def _deregister(self, freed_pages) -> None:
+        """Drop index entries for pages whose refcount reached zero."""
+        for p in freed_pages:
+            key = self._page_key.pop(p, None)
+            self._prefix_ready.discard(p)
+            if key is None:
+                continue
+            if self._prefix_index.get(key) == p:
+                del self._prefix_index[key]
+            parent = self._page_parent.pop(p)
+            kids = self._prefix_children.get(parent)
+            if kids is not None:
+                kids.discard(p)
+                if not kids:
+                    del self._prefix_children[parent]
+            self._page_block.pop(p, None)
+
+    def _match_prefix(self, eff: np.ndarray):
+        """Match ``eff``'s leading blocks against resident pages. Returns
+        (shared full-block pages, COW fork source or None, prefill
+        start); at least one token is always left to prefill."""
+        t, ps = len(eff), self.page_size
+        shared: list = []
+        if not self.prefix_sharing or t == 0:
+            return shared, None, 0
+        m_max = (t - 1) // ps
+        while len(shared) < m_max:
+            page = self._prefix_index.get(
+                eff[: (len(shared) + 1) * ps].tobytes())
+            if page is None:
+                break
+            shared.append(page)
+        m = len(shared)
+        fork_src = None
+        if m == m_max:
+            # a resident block extending the chain whose first r tokens
+            # equal the remaining tail; only fork-ready pages (the copy
+            # reads the device pool now)
+            r = t - m * ps
+            tail = eff[m * ps: t]
+            for page in self._prefix_children.get(
+                    eff[: m * ps].tobytes(), ()):
+                if page in self._prefix_ready and np.array_equal(
+                        self._page_block[page][:r], tail):
+                    fork_src = page
+                    break
+        start = (t - 1) if fork_src is not None else m * ps
+        return shared, fork_src, start
+
+    # -- admission ---------------------------------------------------------
+    def submit(self, req: Request):
+        """Enqueue ``req``, or reject it with ``error`` set when
+        ``max_queue`` requests already wait."""
+        if (self.max_queue is not None
+                and len(self.queue) >= self.max_queue):
+            self.stats["rejected_queue_full"] += 1
+            self._reject(
+                req,
+                f"queue full ({len(self.queue)} waiting, "
+                f"max_queue={self.max_queue})",
+            )
+            return
+        self.queue.append(req)
+
+    def _reject(self, req: Request, reason: str):
+        req.error = reason
+        self.finished.append(req)
+        self.stats["rejected"] += 1
+
+    def _paged_bind(self, slot: int, req: Request, eff: np.ndarray,
+                    pending_ready: list):
+        """Bind one request's pages to ``slot``: map shared prefix hits,
+        COW-fork a matching partial tail, allocate the rest (plus the
+        growth reservation). Returns ("ok", prefill_start), ("wait", 0)
+        on pool pressure or ("reject", 0) if infeasible."""
+        ps = self.page_size
+        t = len(eff)
+        blocks = max(1, -(-t // ps))
+        shared, fork_src, start = self._match_prefix(eff)
+        m = len(shared)
+        # worst-case growth: a fresh request's first token comes from
+        # prefill without a write, so writes reach len + max_tokens - 2; a
+        # resumed request also writes its stored last token
+        gen_left = req.max_tokens - len(req.generated)
+        future = gen_left - (0 if req.resume_prompt is not None else 1)
+        horizon_tok = min(t + future, self.max_len)
+        horizon = max(blocks, -(-horizon_tok // ps))
+        reserve = horizon - blocks if self.admission == "reserve" else 0
+        if blocks + reserve > self.num_pages:
+            self._reject(
+                req,
+                f"request needs {blocks + reserve} KV pages; "
+                f"pool holds {self.num_pages}",
+            )
+            return "reject", 0
+        # take the shared refs BEFORE the alloc: the alloc may evict
+        # retained pages, and none of them may be a hit we map
+        retained_hits = 0
+        for b, pg in enumerate(shared):
+            if self._allocator.is_retained(pg):
+                self._allocator.revive(pg)
+                retained_hits += 1
+            else:
+                self._allocator.share(pg)
+            self.page_table[slot, b] = pg
+        pages = self._allocator.alloc(blocks - m, reserve=reserve)
+        if pages is None:
+            if shared:
+                self._deregister(self._allocator.release(
+                    shared, retain=self.prefix_retain > 0))
+                self.page_table[slot, :m] = -1
+            return "wait", 0
+        self.stats["retained_hits"] += retained_hits
+        nxt = m
+        if fork_src is not None:
+            # COW fork: the prefill write at t-1 lands inside this shared
+            # block, so the holder gets a private copy first
+            dst = pages[0]
+            copy_paged_page(self.cache, fork_src, dst)
+            self.page_table[slot, m] = dst
+            self.stats["cow_forks"] += 1
+            pages = pages[1:]
+            nxt = m + 1
+        for j, pg in enumerate(pages):
+            self.page_table[slot, nxt + j] = pg
+        self.slot_pages[slot] = blocks
+        self.slot_reserved[slot] = reserve
+        if start:
+            self.stats["prefix_hits"] += m + (fork_src is not None)
+            self.stats["prefix_tokens_saved"] += start
+        if self.prefix_sharing:
+            # newly registered blocks are pages this batch's prefill is
+            # about to write; they become fork-ready after the prefill
+            for b in range(t // ps):
+                page = int(self.page_table[slot, b])
+                if self._register_block(eff, b, page):
+                    pending_ready.append(page)
+        self._note_peak()
+        return "ok", start
+
+    def _admit(self):
+        while self.queue:
+            free = [i for i, r in enumerate(self.slots) if r is None]
+            if not free:
+                return
+            batch: list[Request] = []
+            batch_slots: list[int] = []
+            batch_effs: list[np.ndarray] = []
+            batch_starts: list[int] = []
+            pending_ready: list[int] = []
+            stalled = False
+            while self.queue and len(batch) < len(free):
+                req = self.queue.popleft()
+                eff = self._eff_prompt(req)
+                if len(eff) >= self.max_len:
+                    self._reject(
+                        req,
+                        f"prompt length {len(eff)} >= max_len "
+                        f"{self.max_len}",
+                    )
+                    continue
+                slot = free[len(batch)]
+                status, start = self._paged_bind(slot, req, eff,
+                                                 pending_ready)
+                if status == "wait":
+                    self.queue.appendleft(req)
+                    stalled = True
+                    break
+                if status == "reject":
+                    continue
+                batch.append(req)
+                batch_slots.append(slot)
+                batch_effs.append(eff)
+                batch_starts.append(start)
+            if not batch:
+                return
+            self._prefill_batch(batch_slots, batch, batch_effs, batch_starts)
+            self._prefix_ready.update(
+                p for p in pending_ready if p in self._page_key)
+            if stalled:
+                return
+
+    def _prefill_batch(self, slots: list[int], reqs: list[Request],
+                       effs: list[np.ndarray], starts: list[int]):
+        """Admit N requests with ONE forward: each row carries its
+        UNSHARED suffix, right-padded to a shared bucket, written at
+        positions ``start..len-1`` through its slot's page table."""
+        lens = [len(e) - s for e, s in zip(effs, starts)]
+        lb = _bucket_len(max(lens), self.max_len)
+        nb = self.max_batch
+        tokens = np.zeros((nb, lb), np.int32)
+        lens_a = np.zeros(nb, np.int32)
+        starts_a = np.zeros(nb, np.int32)
+        valid = np.zeros(nb, bool)
+        for row, (eff, st) in enumerate(zip(effs, starts)):
+            tokens[row, :lens[row]] = eff[st:]
+            lens_a[row] = lens[row]
+            starts_a[row] = st
+            valid[row] = True
+        # table truncated to the batch's used page columns (pow2 bucket),
+        # covering the shared prefix blocks the suffix attends to
+        max_blocks = max(-(-len(e) // self.page_size) for e in effs)
+        width = self._pow2_width(max_blocks)
+        route = np.full((nb, width), -1, np.int32)
+        for row, slot in enumerate(slots):
+            route[row] = self.page_table[slot, :width]
+        tok0 = self._prefill_step(
+            self.params, self._to_device(tokens.astype(np.int64)),
+            self._to_device(lens_a.astype(np.int64)),
+            self._to_device(starts_a.astype(np.int64)),
+            self._to_device(route), self._to_device(valid), self.cache,
+            self._gen, self.temperature,
+        )
+        self.stats["prefill_calls"] += 1
+        tok0 = tok0.cpu().numpy()
+        for row, (slot, req) in enumerate(zip(slots, reqs)):
+            self._finish_admit(slot, req, effs[row], int(tok0[row]))
+
+    def _finish_admit(self, slot: int, req: Request, eff: np.ndarray,
+                      tok0: int):
+        """Prefill's last logits give the FIRST generated token. A resumed
+        request discards that sample and continues from its stored last
+        token."""
+        prompt_len = len(eff)
+        if req._seq < 0:
+            self._seq_counter += 1
+            req._seq = self._seq_counter
+        if req.resume_prompt is not None:
+            req.resume_prompt = None
+            self.slots[slot] = req
+            self.slot_pos[slot] = prompt_len
+            self.slot_next[slot] = req.generated[-1]
+            self.active[slot] = True
+            self._slot_seq[slot] = req._seq
+            return
+        req.generated.append(tok0)
+        if req.done:
+            self._release_pages(slot)
+            self.finished.append(req)
+            return
+        self.slots[slot] = req
+        self.slot_pos[slot] = prompt_len
+        self.slot_next[slot] = tok0
+        self.active[slot] = True
+        self._slot_seq[slot] = req._seq
+
+    # -- paged allocation --------------------------------------------------
+    def _note_peak(self):
+        used = self._allocator.held_pages
+        if used > self.stats["peak_pages_used"]:
+            self.stats["peak_pages_used"] = used
+
+    def _release_pages(self, slot: int):
+        """Drop every page reference ``slot`` holds and cancel its unused
+        reservation; with retention, last-reference indexed pages park in
+        the LRU pool instead of freeing."""
+        held = self.page_table[slot][self.page_table[slot] >= 0]
+        if held.size:
+            if self.prefix_retain > 0:
+                indexed = [int(p) for p in held if int(p) in self._page_key]
+                rest = [int(p) for p in held
+                        if int(p) not in self._page_key]
+                freed = self._allocator.release(indexed, retain=True)
+                freed += self._allocator.release(rest)
+            else:
+                freed = self._allocator.release(held)
+            self._deregister(freed)
+        if self.slot_reserved[slot]:
+            self._allocator.cancel_reservation(int(self.slot_reserved[slot]))
+        self.page_table[slot] = -1
+        self.slot_pages[slot] = 0
+        self.slot_reserved[slot] = 0
+
+    def _retire_slot(self, i: int, req: Request):
+        self._release_pages(i)
+        self.finished.append(req)
+        self.slots[i] = None
+        self.active[i] = False
+
+    def _preempt(self, j: int):
+        """Release slot ``j``'s pages and re-queue its request for
+        recompute-resume (its written tokens become the re-prefill
+        prompt)."""
+        req = self.slots[j]
+        req.resume_prompt = self._written_tokens(j)
+        self._release_pages(j)
+        self.slots[j] = None
+        self.active[j] = False
+        self.queue.appendleft(req)
+        self.stats["preemptions"] += 1
+
+    def _alloc_or_preempt(self, i: int) -> Optional[int]:
+        """One page for slot ``i``'s next write; under pool pressure
+        preempt the YOUNGEST resident request until a page frees or ``i``
+        itself is the victim. A request alone in a dry pool is retired
+        truncated. Returns the page, or None if ``i`` no longer needs
+        it."""
+        while True:
+            pages = self._allocator.alloc(1)
+            if pages is not None:
+                return pages[0]
+            active = np.nonzero(self.active)[0]
+            if len(active) <= 1:
+                req = self.slots[i]
+                req.truncated = True
+                self._retire_slot(i, req)
+                self.stats["oop_retired"] += 1
+                return None
+            victim = max(active, key=lambda j: self._slot_seq[j])
+            self._preempt(int(victim))
+            if victim == i:
+                return None
+
+    def _grant_pages(self):
+        """Before the tick's write at ``slot_pos[i]``, make sure the page
+        covering it exists and is held by ``i`` alone (COW forks happen
+        at admission, so the cursor's page is never shared)."""
+        for i in np.nonzero(self.active)[0]:
+            if not self.active[i]:
+                continue  # preempted while serving an earlier grant
+            block = int(self.slot_pos[i]) // self.page_size
+            if block < int(self.slot_pages[i]):
+                page = int(self.page_table[i, block])
+                assert self._allocator.refcount[page] == 1, (
+                    "write cursor reached a shared page", i, block, page)
+                continue
+            if self.slot_reserved[i] > 0:
+                page = self._allocator.claim_reserved(1)[0]
+                self.slot_reserved[i] -= 1
+            else:
+                page = self._alloc_or_preempt(int(i))
+                if page is None:
+                    continue
+            blk = int(self.slot_pages[i])
+            self.page_table[i, blk] = page
+            self.slot_pages[i] = blk + 1
+            self.stats["page_grants"] += 1
+        self._note_peak()
+
+    def _pow2_width(self, pages: int) -> int:
+        """Page-table width covering ``pages``: next power of two, capped
+        at pages_per_slot."""
+        width = 1
+        while width < max(1, pages):
+            width *= 2
+        return min(width, self.pages_per_slot)
+
+    def _active_table(self) -> np.ndarray:
+        """Page table truncated to the columns in use this tick (pow2
+        bucket): decode attention then scales with the pages slots hold.
+        Dropped columns are unallocated or past every write cursor."""
+        width = self._pow2_width(int(self.slot_pages.max()))
+        return self.page_table[:, :width]
+
+    # -- decode ------------------------------------------------------------
+    def _advance_slot(self, i: int, tok: int) -> bool:
+        """Consume one generated token for slot ``i``: append, advance
+        the cursor, index a page the cursor just completed, and retire
+        the slot when done or out of cache. True if it retired."""
+        req = self.slots[i]
+        req.generated.append(tok)
+        self.slot_pos[i] += 1
+        self.slot_next[i] = tok
+        pos = int(self.slot_pos[i])
+        ps = self.page_size
+        if self.prefix_sharing and pos % ps == 0:
+            b = pos // ps - 1
+            page = int(self.page_table[i, b])
+            if page >= 0 and self._register_block(
+                    self._written_tokens(i), b, page):
+                self._prefix_ready.add(page)
+        if req.done or pos >= self.max_len:
+            if not req.done:
+                req.truncated = True
+            self._retire_slot(i, req)
+            return True
+        return False
+
+    def step(self):
+        """One engine tick: admit, grant pages, ONE ragged decode step,
+        retire. Returns False when there was nothing to decode."""
+        self._admit()
+        if not self.active.any():
+            return False
+        self._grant_pages()
+        if not self.active.any():
+            return True  # progress: slots were preempted or retired
+        next_ids = self._decode_step(
+            self.params,
+            self._to_device(self.slot_next[:, None].astype(np.int64)),
+            self.cache, self._to_device(self.slot_pos),
+            self._to_device(self.active),
+            self._to_device(self._active_table()),
+            self._gen, self.temperature,
+        )
+        self.stats["decode_steps"] += 1
+        next_ids = next_ids.cpu().numpy()  # the one host sync per tick
+        for i in np.nonzero(self.active)[0]:
+            self._advance_slot(int(i), int(next_ids[i]))
+        return True
+
+    def run_to_completion(self, max_ticks: int = 10_000):
+        """Tick until every submitted request retired, or ``max_ticks``;
+        stragglers are then retired with ``error="tick budget
+        exhausted"`` (in-flight ones keep their partial tokens)."""
+        ticks = 0
+        while (
+            self.queue or any(s is not None for s in self.slots)
+        ) and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        if self.queue or any(s is not None for s in self.slots):
+            reason = "tick budget exhausted"
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                req.error = reason
+                self.stats["tick_budget_exhausted"] += 1
+                self._retire_slot(i, req)
+            while self.queue:
+                req = self.queue.popleft()
+                req.error = reason
+                self.stats["tick_budget_exhausted"] += 1
+                self.finished.append(req)
+        return self.finished

@@ -1,0 +1,63 @@
+"""Import boundary of the port: repro_torch and chip_smoke.py import
+neither JAX nor anything of the reference package ``repro``, and the
+kernel modules import (and their plain versions run) with no nvcc."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None       # any import of jax now raises
+sys.modules["repro"] = None     # ... and of the reference package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import torch
+from repro_torch.kernels import ops
+from repro_torch.quant.config import QuantConfig
+from repro_torch.quant.packing import pack_weights
+w = torch.randn(64, 8)
+packed, scale = pack_weights(w, QuantConfig(bits=4))
+out = ops.samd_matmul(torch.randn(2, 64), packed, scale, 64,
+                      QuantConfig(bits=4))
+assert out.shape == (2, 8)
+print(len(names))
+"""
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_have_no_forbidden_imports():
+    assert len(_sources()) > 15
+    for path in _sources():
+        hits = FORBIDDEN.findall(path.read_text())
+        assert not hits, (path, hits)
+
+
+def test_port_imports_without_jax_repro_or_nvcc(tmp_path):
+    """Every module imports in a process where ``jax`` and ``repro`` are
+    blocked, with no nvcc on PATH or under CUDA_HOME; a CPU tensor then
+    runs a kernel's plain version."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["CUDA_HOME"] = str(tmp_path)
+    env["PATH"] = os.path.dirname(sys.executable)
+    res = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20  # every port module imported

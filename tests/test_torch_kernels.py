@@ -1,0 +1,189 @@
+"""Port parity: the plain PyTorch version of each kernel matches the JAX
+Pallas kernel body (run in the Pallas interpreter). The CUDA kernels are
+held against the plain versions on a card by ``test_torch_cuda.py``.
+
+Tolerances: with f32 activations / pools both sides compute in f32 and
+differ only in summation order, so rtol=1e-5 and atol=1e-5 times the
+largest output magnitude (a K=1024 sum of values ~10 carries ~1e-5
+absolute f32 rounding). With bf16 inputs the outputs are
+rounded to bf16 (8 significant bits), so one rounding step apart is
+2^-8 relative: rtol=atol=2e-2 relative to the output's magnitude.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import samd as jsamd  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.quant import QuantConfig as JQuantConfig  # noqa: E402
+from repro.quant import pack_weights as j_pack_weights  # noqa: E402
+from repro.quant.packing import pack_int8_lanes as j_pack_int8  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import samd_matmul as mm  # noqa: E402
+from repro_torch.quant.config import QuantConfig  # noqa: E402
+
+BF16_TOL = 2e-2
+
+
+def _to_torch_words(words) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(words).view(np.int32).copy())
+
+
+def _matmul_case(m, k, n, bits, spacer, signed, seed):
+    """(x f32, words uint32, scale f32) for a packed-weight matmul; signed
+    cases quantize a random weight, unsigned cases pack random
+    non-negative codes (lanes with no sign bit)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    jcfg = JQuantConfig(bits=bits, spacer=spacer)
+    if signed:
+        words, scale = j_pack_weights(
+            jnp.asarray(rng.normal(size=(k, n)).astype(np.float32)), jcfg)
+    else:
+        codes = rng.integers(0, 2 ** bits, size=(n, k)).astype(np.int32)
+        fmt = jsamd.SAMDFormat(bits, jcfg.lane_width, signed=False)
+        words = jnp.moveaxis(jsamd.pack(jnp.asarray(codes), fmt), -1, 0)
+        scale = jnp.asarray(rng.uniform(0.01, 0.1, size=(1, n)),
+                            jnp.float32)
+    return x, np.array(words), np.array(scale), jcfg
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("spacer", ["temporary", "permanent"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 64), (5, 203, 40)])
+def test_samd_matmul_plain_matches_pallas_kernel(m, k, n, bits, spacer,
+                                                 signed):
+    """Ragged K (203; 1024 at 4-bit permanent is 170 words + 4 lanes),
+    non-power-of-two vpw (10, 6, 3) and unsigned lanes; f32 activations
+    so the comparison is of the algorithm."""
+    x, words, scale, jcfg = _matmul_case(m, k, n, bits, spacer, signed,
+                                         seed=bits * 31 + k)
+    want = jops.samd_matmul(jnp.asarray(x), jnp.asarray(words),
+                            jnp.asarray(scale), k, jcfg, signed=signed,
+                            backend="interpret", verify=False)
+    got = ops.samd_matmul(torch.from_numpy(x), _to_torch_words(words),
+                          torch.from_numpy(scale), k,
+                          QuantConfig(bits=bits, spacer=spacer),
+                          signed=signed)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def test_samd_matmul_plain_bf16_and_lead_dims():
+    """bf16 activations with leading batch dims, K = 2816 (the wd shape:
+    352 words at 4-bit temporary)."""
+    x, words, scale, jcfg = _matmul_case(6, 2816, 32, 4, "temporary", True,
+                                         seed=5)
+    xb = jnp.asarray(x, jnp.bfloat16).reshape(2, 3, 2816)
+    want = np.asarray(jops.samd_matmul(
+        xb, jnp.asarray(words), jnp.asarray(scale), 2816, jcfg,
+        backend="interpret", verify=False), np.float32)
+    got = ops.samd_matmul(
+        torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16),
+        _to_torch_words(words), torch.from_numpy(scale), 2816,
+        QuantConfig(bits=4))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 32)
+    tol = BF16_TOL * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
+                               atol=tol)
+
+
+def _paged_case(b, hkv, g, dh, ps, n_pp, packed, dtype, seed):
+    """Random pools and a ragged page table: each slot owns a prefix of
+    distinct pages with -1 holes after it, and slot 1 owns nothing (all
+    -1, the empty slot). Positions land mid-page."""
+    rng = np.random.default_rng(seed)
+    p = b * n_pp + 1
+    q = rng.normal(size=(b, hkv * g, dh)).astype(np.float32)
+    perm = rng.permutation(p)
+    pt = np.full((b, n_pp), -1, np.int32)
+    pos = np.zeros(b, np.int32)
+    for i in range(b):
+        if i == 1:
+            continue
+        n_own = 1 + (i % n_pp)
+        pt[i, :n_own] = perm[i * n_pp:i * n_pp + n_own]
+        pos[i] = (n_own - 1) * ps + int(rng.integers(0, ps))
+    if packed:
+        kq = rng.integers(-127, 128, size=(p, ps, hkv, dh)).astype(np.int8)
+        vq = rng.integers(-127, 128, size=(p, ps, hkv, dh)).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, size=(p, ps, hkv)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, size=(p, ps, hkv)).astype(np.float32)
+        pools = (np.asarray(j_pack_int8(jnp.asarray(kq))),
+                 np.asarray(j_pack_int8(jnp.asarray(vq))), ks, vs)
+    else:
+        kv = rng.normal(size=(2, p, ps, hkv, dh)).astype(np.float32)
+        pools = (kv[0], kv[1], None, None)
+    return q, pools, pt, pos, dtype
+
+
+def _run_both(q, pools, pt, pos, dtype):
+    kp, vp, ks, vs = pools
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    packed = ks is not None
+
+    def jarr(a):
+        return jnp.asarray(a) if packed else jnp.asarray(a, jd)
+
+    want = np.asarray(jops.paged_decode_attention(
+        jnp.asarray(q, jd), jarr(kp), jarr(vp), jnp.asarray(pt),
+        jnp.asarray(pos),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
+        interpret=True), np.float32)
+
+    def tarr(a):
+        if packed:
+            return _to_torch_words(a)
+        return torch.from_numpy(a).to(td)
+
+    got = ops.paged_decode_attention(
+        torch.from_numpy(q).to(td), tarr(kp), tarr(vp),
+        torch.from_numpy(pt), torch.from_numpy(pos),
+        k_scale=None if ks is None else torch.from_numpy(ks),
+        v_scale=None if vs is None else torch.from_numpy(vs))
+    return got.float().numpy(), want
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_attention_plain_matches_pallas_kernel(g, packed):
+    """Ragged page tables with -1 pages, an empty slot, GQA G in {1, 4};
+    f32 pools (packed pools dequantize to f32 in both)."""
+    case = _paged_case(b=4, hkv=2, g=g, dh=16, ps=8, n_pp=3, packed=packed,
+                       dtype="f32", seed=g + 10 * packed)
+    got, want = _run_both(*case)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[1] == 0).all(), "a slot with no valid key emits zeros"
+
+
+def test_paged_attention_plain_bf16_pools():
+    case = _paged_case(b=3, hkv=2, g=2, dh=32, ps=4, n_pp=4, packed=False,
+                       dtype="bf16", seed=3)
+    got, want = _run_both(*case)
+    np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+    assert (got[1] == 0).all()
+
+
+def test_kernel_entry_points_refuse_other_devices():
+    """No silent plain route: only a CPU tensor takes the plain version."""
+    x = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.samd_matmul(x, torch.zeros((2, 4), dtype=torch.int32), None, 8,
+                        QuantConfig(bits=4))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(mm.KERNEL, "_lib", None)
+    monkeypatch.setattr(type(mm.KERNEL), "library",
+                        property(lambda self: tmp_path / "absent.so"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mm.KERNEL.lib()
