@@ -6,24 +6,43 @@
 Phases, any failure exits non-zero:
   (a) build every CUDA kernel of ``src/repro_torch/kernels/csrc`` with nvcc
       for sm_90a, one process per source, all at once;
-  (b) hold each kernel against its plain PyTorch version on the card at the
-      serving path's shapes (stated tolerances below), and check that the
-      matmul kernel unpacks the packed codes exactly;
+  (b) hold each kernel launcher against its plain PyTorch version on the
+      card at the serving path's shapes (stated tolerances below), check
+      that the matmul kernel unpacks the packed codes exactly, and (b')
+      that the speculative verify kernel and the decode kernel's draft
+      ring fold agree with theirs at each run of (e)'s own S = K + 1 and
+      R = K (and at S = 2, 5 and R = 4, G = 1 and 4), rows at -1 and
+      empty slots giving exact zeros;
   (c) serve full-width qwen1.5-0.5b (24 layers, seeded random weights,
       4-bit SAMD weights through the kernel route) with ``ServingEngine``:
       16 greedy requests, prompts of 32-256 tokens, 32 new tokens each,
       once with bf16 KV and once with packed int8 KV; every request must
-      finish untruncated, every kernel must have launched, and the model's
-      logits on a small input must agree with the same model run through
-      the kernels' plain versions on the CPU;
-  (d) time each kernel at its decode shape beside its plain version, the
-      one PyTorch call that computes the same function (``library_ms``, a
-      yardstick the port never calls) and its bound: the larger of its
+      finish untruncated, the path's launchers (matmul, decode attention)
+      must have launched and no other, and the model's logits on a small
+      input must agree with the same model run through the kernels' plain
+      versions on the CPU;
+  (e) serve the same workload speculatively: run A, a bf16 target with an
+      8-bit SAMD draft, ``speculative=4``, bf16 KV; run B, the 4-bit
+      packed-int8-KV target of (c) as its own draft, ``speculative=2``.
+      Each must finish every request untruncated, launch the matmul, the
+      ring-fold decode and the verify launchers (and not the plain decode
+      one), and give plain greedy decode's tokens (run A against a plain
+      run of its bf16 target, run B against (c)'s int8-KV run), or part
+      from them only at a token where a full forward of the prefix on the
+      card has a top-1/top-2 margin under ``MODEL_TOL`` of its largest
+      logit. Each prints its ms per speculative tick (median, and split
+      into the engine's draft and verify steps by CUDA events around
+      them), tokens/s, accept rate, mean
+      tokens per slot per tick and peak memory;
+  (d) time each launcher at its main-path shape beside its plain version,
+      the one PyTorch call that computes the same function (``library_ms``,
+      a yardstick the port never calls) and its bound: the larger of its
       bytes over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
-      HBM3 and dense bf16 peaks).
+      HBM3 and dense bf16 peaks); (d') the verify kernel at run A's and
+      run B's shapes and the ring fold at the draft's.
 
 The last three lines are the card's name and power limit from nvidia-smi,
-one JSON object with every kernel's numbers, and the result line
+one JSON object with every launcher's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits non-zero with
 no result.
@@ -51,6 +70,14 @@ BF16_TOL = 1e-2
 MODEL_TOL = 5e-2
 SERVE = dict(max_batch=8, max_len=512, page_size=16)
 N_REQUESTS, MAX_TOKENS = 16, 32
+MATMUL = "samd_matmul_launch"
+DECODE = "paged_decode_attention_launch"
+RING = "paged_decode_ring_attention_launch"
+VERIFY = "paged_verify_attention_launch"
+PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+# the speculative serving runs of (e): (run, KV format, K); (b') checks the
+# verify kernel at each run's S = K + 1 and the ring fold at its R = K
+SPEC_RUNS = (("A", "bf16", 4), ("B", "int8", 2))
 MATMUL_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
@@ -105,13 +132,15 @@ def max_err(got, want, tol):
 # -- (b) kernels against their plain versions --------------------------------
 
 def check_samd_matmul(dev, gen):
+    """Returns the max |kernel - plain| of each case group, keyed by
+    (bits, spacer, signed, M), over the three weight shapes."""
     from repro_torch.core import samd
     from repro_torch.kernels import samd_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.quant.config import QuantConfig
     from repro_torch.quant.packing import pack_weights, unpack_weights
 
-    worst, n = 0.0, 0
+    errs, n = {}, 0
     for bits in (2, 4, 8):
         for spacer in ("temporary", "permanent"):
             cfg = QuantConfig(bits=bits, spacer=spacer)
@@ -134,7 +163,9 @@ def check_samd_matmul(dev, gen):
                                               signed=signed)
                         want = mm.samd_matmul_plain(x, packed, scale, k,
                                                     cfg, signed=signed)
-                        worst = max(worst, max_err(got, want, BF16_TOL))
+                        key = (bits, spacer, signed, m)
+                        errs[key] = max(errs.get(key, 0.0),
+                                        max_err(got, want, BF16_TOL))
                         n += 1
             # exact unpack: one-hot rows and unit scales read codes back
             k = 1024
@@ -149,8 +180,8 @@ def check_samd_matmul(dev, gen):
             if not torch.equal(got.float(), codes.float()):
                 raise AssertionError(f"codes not exact at {bits}/{spacer}")
     log(f"  samd_matmul: {n} cases within tolerance, codes exact; "
-        f"max |kernel - plain| = {worst:.4g}")
-    return worst
+        f"max |kernel - plain| = {max(errs.values()):.4g}")
+    return errs
 
 
 def paged_case(dev, gen, b, hkv, g, dh, ps, n_pp, packed, lens):
@@ -188,31 +219,134 @@ def paged_case(dev, gen, b, hkv, g, dh, ps, n_pp, packed, lens):
 
 
 def check_paged_attention(dev, gen):
+    """Returns the max |kernel - plain| of each case, keyed by (pool
+    format, G)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
-    """Returns the max |kernel - plain| of each pool format, keyed by
-    "bf16" and "int8", over its G = 1 and G = 4 cases."""
-    worst = {}
+    errs = {}
     for packed in (False, True):
         fmt = "int8" if packed else "bf16"
-        worst[fmt] = 0.0
         for hkv, g in ((16, 1), (4, 4)):
             lens = [40, -1, 255, 16, 15, 300, 0, 511]  # slot 1 is empty
             args, kw = paged_case(dev, gen, 8, hkv, g, 64, 16, 32, packed,
                                   lens)
             got = ops.paged_decode_attention(*args, **kw)
             want = pa.paged_decode_attention_plain(*args, **kw)
-            worst[fmt] = max(worst[fmt], max_err(got, want, BF16_TOL))
+            errs[fmt, g] = max_err(got, want, BF16_TOL)
             if not (got[1] == 0).all():
                 raise AssertionError("an empty slot must emit zeros")
-        log(f"  paged_decode_attention ({fmt} KV): G = 1 and 4 within "
-            f"tolerance, empty slot exact zeros; max |kernel - plain| = "
-            f"{worst[fmt]:.4g}")
-    return worst
+    log("  paged_decode_attention: empty slot exact zeros; max |kernel - "
+        "plain| per (KV, G) = " + json.dumps(
+            {f"{f} G={g}": e for (f, g), e in errs.items()}))
+    return errs
 
 
-# -- (c) serving -------------------------------------------------------------
+def ring_case(dev, gen, b, r, hkv, dh):
+    """The draft's ring: slot i has its first i % (r + 1) entries written
+    (slot 0 none, so it keeps its pool-only state), the rest at -1."""
+    kv = torch.randn((2, b, r, hkv, dh), generator=gen, device=dev)
+    epos = torch.full((b, r), -1, dtype=torch.int32, device=dev)
+    for i in range(b):
+        n = i % (r + 1)
+        epos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev) + 1000
+    return dict(extra_k=kv[0].to(torch.bfloat16).contiguous(),
+                extra_v=kv[1].to(torch.bfloat16).contiguous(), extra_pos=epos)
+
+
+def verify_case(dev, gen, b, s, hkv, g, dh, ps, n_pp, packed, bases, specs):
+    """q [B, S, H, dh], pools and a page table as the verify sees them:
+    slot i sits at position bases[i] with draft budget specs[i], so its
+    rows are bases[i]..bases[i] + specs[i] and -1 after, and it owns the
+    pages covering that window, then -1; bases[i] < 0 makes slot i empty
+    (table and rows all -1)."""
+    lens = [bs + sp if bs >= 0 else -1 for bs, sp in zip(bases, specs)]
+    (q, kp, vp, pt, _), kw = paged_case(dev, gen, b, hkv, g * s, dh, ps,
+                                        n_pp, packed, lens)
+    q = q.reshape(b, hkv, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, s, hkv * g, dh).contiguous()
+    q_pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for i, (bs, sp) in enumerate(zip(bases, specs)):
+        if bs >= 0:
+            q_pos[i, :sp + 1] = bs + torch.arange(sp + 1, dtype=torch.int32,
+                                                  device=dev)
+    return (q, kp, vp, pt, q_pos), kw
+
+
+def check_verify_attention(dev, gen):
+    """Holds the verify kernel against its plain version for each pool
+    format at S in {2, 5} and at each speculative run's S = K + 1 (G = 1),
+    and at S = 5 with G = 4; slots have ragged budgets (rows at -1), slot
+    1 is empty and slot 3 has pages but every row at -1 (an inactive
+    budget). Returns the max |kernel - plain| of each case, keyed by
+    (pool format, S, G)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    bases = [40, -1, 250, 17, 15, 300, 0, 505]
+    errs = {}
+    for packed in (False, True):
+        fmt = "int8" if packed else "bf16"
+        sizes = sorted({2, 5} | {k + 1 for _, _, k in SPEC_RUNS})
+        for s, hkv, g in [(s, 16, 1) for s in sizes] + [(5, 4, 4)]:
+            specs = [min(i % s, s - 1) for i in range(8)]
+            args, kw = verify_case(dev, gen, 8, s, hkv, g, 64, 16, 32,
+                                   packed, bases, specs)
+            args[4][3] = -1  # slot 3: pages, but no row in budget
+            got = ops.paged_verify_attention(*args, **kw)
+            want = pa.paged_verify_attention_plain(*args, **kw)
+            errs[fmt, s, g] = max_err(got, want, BF16_TOL)
+            dead = args[4] < 0
+            if not ((got[dead] == 0).all() and (got[1] == 0).all()):
+                raise AssertionError("rows at -1 must emit exact zeros")
+            if not (got[~dead] != 0).any(dim=-1).all():
+                raise AssertionError("a live row came out all zero")
+    log("  paged_verify_attention: rows at -1 and the empty slot exact "
+        "zeros; max |kernel - plain| per (KV, S, G) = "
+        + json.dumps({f"{f} S={s} G={g}": e for (f, s, g), e in
+                      errs.items()}))
+    return errs
+
+
+def check_ring_fold(dev, gen):
+    """Holds the decode kernel with the draft ring folded in against its
+    plain version for each pool format at R = 4 and at each speculative
+    run's R = K, G = 1 and 4, some ring entries at -1; slot 1 has no page
+    (its ring alone), slot 0 no ring entry (pool only); with every ring
+    entry at -1 the empty slot emits zeros. Returns the max |kernel -
+    plain| of each case, keyed by (pool format, R, G)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    errs = {}
+    for packed in (False, True):
+        fmt = "int8" if packed else "bf16"
+        for r in sorted({4} | {k for _, _, k in SPEC_RUNS}):
+            for hkv, g in ((16, 1), (4, 4)):
+                lens = [40, -1, 255, 16, 15, 300, 0, 511]
+                args, kw = paged_case(dev, gen, 8, hkv, g, 64, 16, 32,
+                                      packed, lens)
+                ring = ring_case(dev, gen, 8, r, hkv, 64)
+                got = ops.paged_decode_attention(*args, **kw, **ring)
+                want = pa.paged_decode_attention_plain(*args, **kw, **ring)
+                errs[fmt, r, g] = max_err(got, want, BF16_TOL)
+                pool_only = ops.paged_decode_attention(*args, **kw)
+                if not torch.equal(got[0], pool_only[0]):
+                    raise AssertionError("a slot with no ring entry must "
+                                         "keep its pool-only result")
+                none = dict(ring, extra_pos=torch.full_like(
+                    ring["extra_pos"], -1))
+                if not (ops.paged_decode_attention(*args, **kw, **none)[1]
+                        == 0).all():
+                    raise AssertionError("no page and no ring entry must "
+                                         "emit zeros")
+    log("  paged_decode_ring_attention: max |kernel - plain| per (KV, R, "
+        "G) = " + json.dumps({f"{f} R={r} G={g}": e for (f, r, g), e in
+                              errs.items()}))
+    return errs
+
+
+# -- (c) and (e) serving -----------------------------------------------------
 
 def workload(seed):
     from repro_torch.serving.engine import Request
@@ -225,17 +359,44 @@ def workload(seed):
             for i in range(N_REQUESTS)]
 
 
-def serve(cfg, kv_bits, dev, seed=0):
-    """Serve the workload; returns (engine, summary dict, launch counts)."""
+def time_speculative_steps(eng):
+    """Wrap ``eng``'s draft and verify steps with CUDA events; returns a
+    list that gets, per speculative tick, the events (start, after draft,
+    after verify) and the number of active slots."""
+    draft, verify = eng._draft_step, eng._verify_step
+    marks = []
+
+    def timed_draft(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = draft(*args)
+        ev[1].record()
+        marks.append((ev, int(eng.active.sum())))
+        return out
+
+    def timed_verify(*args):
+        out = verify(*args)
+        marks[-1][0][2].record()
+        return out
+
+    eng._draft_step, eng._verify_step = timed_draft, timed_verify
+    return marks
+
+
+def serve(label, dev, expect, seed=0, **engine_kw):
+    """Serve the workload with ``ServingEngine(QWEN15_05B, **engine_kw)``;
+    the launchers in ``expect`` must launch and no other. Returns
+    (engine, summary dict, launch counts)."""
+    from repro_torch.configs.archs import QWEN15_05B as cfg
     from repro_torch.kernels import ops
-    from repro_torch.quant.config import QuantConfig
     from repro_torch.serving.engine import ServingEngine
 
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, None, quant=QuantConfig(bits=4, kv_bits=kv_bits),
-                        seed=seed, device=dev, **SERVE)
+    eng = ServingEngine(cfg, None, seed=seed, device=dev, **SERVE,
+                        **engine_kw)
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t0
+    marks = time_speculative_steps(eng) if eng.speculative else None
     for r in workload(seed + 1):
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -264,20 +425,75 @@ def serve(cfg, kv_bits, dev, seed=0):
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.rid}: token out of range")
     for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} never launched ({counts})")
+        if (c > 0) != (name in expect):
+            raise AssertionError(f"{label}: launcher {name} ran {c} times; "
+                                 f"expected {sorted(expect)} only")
     gen_tokens = sum(len(r.generated) for r in done)
     summary = dict(
-        kv="int8" if kv_bits else "bf16", init_s=round(t_init, 3),
-        serve_s=round(wall, 3), ticks=ticks, decode_ticks=len(decode_ms),
+        run=label, init_s=round(t_init, 3), serve_s=round(wall, 3),
+        ticks=ticks, decode_ticks=len(decode_ms),
         decode_tick_ms_median=round(float(np.median(decode_ms)), 3),
         decode_tick_ms_mean=round(float(np.mean(decode_ms)), 3),
         tokens_per_s=round(gen_tokens / wall, 1),
         prefill_calls=eng.stats["prefill_calls"],
         peak_mem_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 2),
         launches=counts)
-    log(f"  serve ({summary['kv']} KV): " + json.dumps(summary))
+    if marks:
+        split = [(a.elapsed_time(b), b.elapsed_time(c))
+                 for (a, b, c), _ in marks]
+        slot_ticks = sum(n for _, n in marks)
+        st = eng.stats
+        summary.update(
+            spec_ticks=st["spec_ticks"],
+            accept_rate=round(st["draft_accepted"]
+                              / max(1, st["draft_proposed"]), 4),
+            draft_proposed=st["draft_proposed"],
+            draft_accepted=st["draft_accepted"],
+            # every token but each request's first (its prefill's) comes
+            # from a speculative tick
+            tokens_per_slot_tick=round(
+                (gen_tokens - N_REQUESTS) / max(1, slot_ticks), 3),
+            draft_ms_median=round(float(np.median([d for d, _ in split])),
+                                  3),
+            verify_ms_median=round(float(np.median([v for _, v in split])),
+                                   3),
+            draft_ms_mean=round(float(np.mean([d for d, _ in split])), 3),
+            verify_ms_mean=round(float(np.mean([v for _, v in split])), 3))
+    log(f"  serve ({label}): " + json.dumps(summary))
     return eng, summary, counts
+
+
+def check_greedy(eng, plain, dev):
+    """``eng``'s tokens against plain greedy decode's (``plain``, finished
+    requests of the same workload and target weights): identical, or
+    parting at a token where a full forward of the prefix on the card
+    gives a top-1/top-2 margin under MODEL_TOL of the largest logit."""
+    from repro_torch.models.model import forward
+
+    want = {r.rid: (r.prompt, r.generated) for r in plain}
+    identical, margins = 0, []
+    for r in eng.finished:
+        prompt, ref = want[r.rid]
+        j = next((i for i, (a, b) in enumerate(zip(ref, r.generated))
+                  if a != b), None)
+        if j is None:
+            identical += 1
+            continue
+        toks = np.concatenate([prompt, np.asarray(ref[:j], np.int32)])
+        lg = forward(eng.params, torch.from_numpy(toks[None]).long().to(dev),
+                     eng.cfg)[0, -1].float()
+        top2 = torch.topk(lg, 2).values
+        margin = (top2[0] - top2[1]).item()
+        limit = MODEL_TOL * lg.abs().max().item()
+        if margin > limit:
+            raise AssertionError(
+                f"request {r.rid} parts from plain decode at token {j} "
+                f"with a top-1/top-2 margin {margin:.4g} > {limit:.4g}")
+        margins.append(round(margin / lg.abs().max().item(), 5))
+    log(f"  greedy vs plain decode: {identical} of {len(want)} requests "
+        f"token-identical; the others part at near-ties (margin / max "
+        f"logit {margins})")
+    return identical
 
 
 def check_model_against_plain(eng, dev):
@@ -330,9 +546,10 @@ def check_model_against_plain(eng, dev):
 
 # -- (d) timing at decode shapes ---------------------------------------------
 
-def time_samd_matmul(eng, dev, timer):
-    """Per-launch times over the 24 layers' weights of each decode linear
-    (M = max_batch), so the weights come from HBM as in a decode tick."""
+def time_samd_matmul(eng, dev, timer, params, label):
+    """Per-launch times over the 24 layers' weights (``params``, packed)
+    of each decode linear (M = max_batch), so the weights come from HBM
+    as in a decode tick."""
     from repro_torch.kernels import samd_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.quant.packing import dequant_weights
@@ -341,7 +558,7 @@ def time_samd_matmul(eng, dev, timer):
     rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                          bytes=0.0, ops=0.0)
     for part, name in DECODE_LINEARS:
-        ws = [blk[part][name] for blk in eng.params["blocks"]]
+        ws = [blk[part][name] for blk in params["blocks"]]
         k, nn = ws[0].orig_shape
         cfg = ws[0].cfg
         x = torch.randn(m, k, device=dev).to(torch.bfloat16)
@@ -368,9 +585,8 @@ def time_samd_matmul(eng, dev, timer):
                        ("ops", n_ops)):
             tot[key] += v
         del dense
-    kv = "int8" if eng._kv_bits else "bf16"
     for r in rows:
-        log(f"  samd_matmul decode ({kv} KV run) " + json.dumps(
+        log(f"  samd_matmul decode ({label}) " + json.dumps(
             {k: (round(v, 5) if isinstance(v, float) else v)
              for k, v in r.items()}))
     n = len(rows)
@@ -395,26 +611,81 @@ def time_samd_matmul_prefill(eng, dev, timer):
             f"{lib:.4f} ms")
 
 
+def fill_pools(eng, args, kw):
+    """Copy a case's random pools into every layer's pools of ``eng``, so
+    a timing reads realistic values from HBM, layer after layer."""
+    for lay in eng.cache["layers"]:
+        for key, t in zip(("k", "v"), args[1:3]):
+            lay[key][: t.shape[0]].copy_(t)
+        for key, t in kw.items():
+            lay[key][: t.shape[0]].copy_(t)
+
+
+def dense_kv(eng, pt):
+    """Per layer, the pages of ``pt`` gathered beforehand into dense bf16
+    K and V [B, Hkv, n_pp * ps, dh]: the library yardstick's input."""
+    from repro_torch.quant.packing import unpack_int8_lanes
+
+    cfg, ps = eng.cfg, eng.page_size
+    b, n_pp = pt.shape
+    safe = pt.clamp(min=0).long()
+    dense = []
+    for lay in eng.cache["layers"]:
+        kk, vv = lay["k"][safe], lay["v"][safe]
+        if "k_scale" in lay:
+            kk = unpack_int8_lanes(kk) * lay["k_scale"][safe][..., None]
+            vv = unpack_int8_lanes(vv) * lay["v_scale"][safe][..., None]
+        dense.append(tuple(
+            t.reshape(b, n_pp * ps, cfg.n_kv_heads, cfg.head_dim)
+            .transpose(1, 2).to(torch.bfloat16).contiguous()
+            for t in (kk, vv)))
+    return dense
+
+
+def page_mask(pt, ps, q_pos):
+    """[B, Sq, n_pp * ps]: key offset <= the query's position, on an
+    allocated page (q_pos [B, Sq])."""
+    offs = torch.arange(pt.shape[1] * ps, device=pt.device)
+    return ((offs[None, None] <= q_pos[..., None].long())
+            & torch.repeat_interleave(pt >= 0, ps, dim=1)[:, None])
+
+
+def kv_bytes_per_token(cfg, packed):
+    per_tok = cfg.n_kv_heads * cfg.head_dim
+    return 2 * (per_tok + 4 * cfg.n_kv_heads if packed else 2 * per_tok)
+
+
+def timing_row(label, kern, plain, lib, n_bytes, n_ops, **extra):
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    row = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+               bound_by=by, bytes=n_bytes, ops=n_ops, **extra)
+    log(f"  {label} " + json.dumps(
+        {k: (round(v, 5) if isinstance(v, float) else v)
+         for k, v in row.items()}))
+    return row
+
+
+def mid_positions(eng):
+    """The workload's first max_batch requests halfway through their
+    generation: the positions a decode tick sees mid-run."""
+    return [int(len(r.prompt)) + MAX_TOKENS // 2
+            for r in workload(1)[:eng.max_batch]]
+
+
 def time_paged_attention(eng, dev, timer, packed, gen):
     """Decode attention of 8 slots at the workload's mid-run positions over
     every layer's pools (page table width 32, as the engine's pow2 table
     takes it for positions up to 288 + 32)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.quant.packing import unpack_int8_lanes
 
     cfg, ps = eng.cfg, eng.page_size
     b, n_pp = eng.max_batch, 32
-    lens = [int(len(r.prompt)) + MAX_TOKENS // 2 for r in workload(1)[:b]]
     args, kw = paged_case(dev, gen, b, cfg.n_kv_heads, 1, cfg.head_dim, ps,
-                          n_pp, packed, lens)
+                          n_pp, packed, mid_positions(eng))
     q, _, _, pt, pos = args
+    fill_pools(eng, args, kw)
     layers = eng.cache["layers"]
-    for lay in layers:  # realistic values in the pools the timing reads
-        for key, t in zip(("k", "v"), args[1:3]):
-            lay[key][: t.shape[0]].copy_(t)
-        for key, t in kw.items():
-            lay[key][: t.shape[0]].copy_(t)
 
     def attn(fn):
         return lambda: [fn(q, lay["k"], lay["v"], pt, pos,
@@ -425,39 +696,110 @@ def time_paged_attention(eng, dev, timer, packed, gen):
     kern = timer(attn(ops.paged_decode_attention)) / nl
     plain = timer(attn(pa.paged_decode_attention_plain), iters=3) / nl
     # library yardstick: SDPA over a dense KV gathered beforehand
-    length = n_pp * ps
-    safe = pt.clamp(min=0).long()
-    dense = []
-    for lay in layers:
-        kk, vv = lay["k"][safe], lay["v"][safe]
-        if packed:
-            kk = unpack_int8_lanes(kk) * lay["k_scale"][safe][..., None]
-            vv = unpack_int8_lanes(vv) * lay["v_scale"][safe][..., None]
-        dense.append(tuple(
-            t.reshape(b, length, cfg.n_kv_heads, cfg.head_dim)
-            .transpose(1, 2).to(torch.bfloat16).contiguous()
-            for t in (kk, vv)))
-    offs = torch.arange(length, device=dev)
-    mask = ((offs[None] <= pos[:, None].long())
-            & torch.repeat_interleave(pt >= 0, ps, dim=1))[:, None, None]
+    dense = dense_kv(eng, pt)
+    mask = page_mask(pt, ps, pos[:, None])[:, None]
     qd = q[:, :, None]
     lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
         qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
     del dense
     tokens = int((pos + 1).sum().item())  # keys the slots' queries read
-    per_tok = cfg.n_kv_heads * cfg.head_dim
-    kv_bytes = 2 * tokens * (per_tok + 4 * cfg.n_kv_heads if packed
-                             else 2 * per_tok)
-    n_bytes = (kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4
-               + pos.numel() * 4)
+    n_bytes = (tokens * kv_bytes_per_token(cfg, packed) + 2 * q.numel() * 2
+               + pt.numel() * 4 + pos.numel() * 4)
     n_ops = 4 * tokens * cfg.n_heads * cfg.head_dim
-    b_ms, by = bound_ms(n_bytes, n_ops)
-    row = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-               bound_by=by, bytes=n_bytes, ops=n_ops, keys=tokens)
-    log(f"  paged_decode_attention ({'int8' if packed else 'bf16'} KV) "
-        + json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
-                      for k, v in row.items()}))
-    return row
+    return timing_row(
+        f"paged_decode_attention ({'int8' if packed else 'bf16'} KV)", kern,
+        plain, lib, n_bytes, n_ops, keys=tokens)
+
+
+def time_ring_fold(eng, dev, timer, gen, label):
+    """The draft's attention at the workload's mid-run positions over
+    every layer of ``eng``'s pools: the pool read to ``pos - 1`` and
+    the full ring of K entries (the draft's last step) folded in."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    cfg, ps, r = eng.cfg, eng.page_size, eng.speculative
+    b, n_pp = eng.max_batch, 32
+    packed = eng._kv_bits == 8
+    pos = mid_positions(eng)
+    args, kw = paged_case(dev, gen, b, cfg.n_kv_heads, 1, cfg.head_dim, ps,
+                          n_pp, packed, [p - 1 for p in pos])
+    q, _, _, pt, bound = args
+    fill_pools(eng, args, kw)
+    kv = torch.randn((2, b, r, cfg.n_kv_heads, cfg.head_dim), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ring = dict(extra_k=kv[0].contiguous(), extra_v=kv[1].contiguous(),
+                extra_pos=(torch.tensor(pos, device=dev)[:, None]
+                           + torch.arange(r, device=dev)).int())
+    layers = eng.cache["layers"]
+
+    def attn(fn):
+        return lambda: [fn(q, lay["k"], lay["v"], pt, bound,
+                           k_scale=lay.get("k_scale"),
+                           v_scale=lay.get("v_scale"), **ring)
+                        for lay in layers]
+
+    nl = len(layers)
+    kern = timer(attn(ops.paged_decode_attention)) / nl
+    plain = timer(attn(pa.paged_decode_attention_plain), iters=3) / nl
+    # library yardstick: SDPA over the gathered pool and the ring, dense
+    dense = [tuple(torch.cat([t, e.transpose(1, 2)], dim=2)
+                   for t, e in zip(kv_l, (ring["extra_k"], ring["extra_v"])))
+             for kv_l in dense_kv(eng, pt)]
+    mask = torch.cat([page_mask(pt, ps, bound[:, None]),
+                      torch.ones((b, 1, r), dtype=torch.bool, device=dev)],
+                     dim=2)[:, None]
+    qd = q[:, :, None]
+    lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
+        qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
+    del dense
+    keys = int((bound + 1).sum().item())
+    n_bytes = (keys * kv_bytes_per_token(cfg, packed)
+               + ring["extra_k"].numel() * 4 + ring["extra_pos"].numel() * 4
+               + 2 * q.numel() * 2 + pt.numel() * 4 + bound.numel() * 4)
+    n_ops = 4 * (keys + b * r) * cfg.n_heads * cfg.head_dim
+    return timing_row(f"paged_decode_ring_attention ({label})", kern, plain,
+                      lib, n_bytes, n_ops, keys=keys + b * r)
+
+
+def time_verify(eng, dev, timer, gen, label):
+    """The verify's attention of 8 slots at the workload's mid-run
+    positions, S = K + 1 queries each at full draft budget, over every
+    layer of ``eng``'s pools (page table width 32)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    cfg, ps, s = eng.cfg, eng.page_size, eng.speculative + 1
+    b, n_pp = eng.max_batch, 32
+    packed = eng._kv_bits == 8
+    args, kw = verify_case(dev, gen, b, s, cfg.n_kv_heads, 1, cfg.head_dim,
+                           ps, n_pp, packed, mid_positions(eng), [s - 1] * b)
+    q, _, _, pt, q_pos = args
+    fill_pools(eng, args, kw)
+    layers = eng.cache["layers"]
+
+    def attn(fn):
+        return lambda: [fn(q, lay["k"], lay["v"], pt, q_pos,
+                           k_scale=lay.get("k_scale"),
+                           v_scale=lay.get("v_scale")) for lay in layers]
+
+    nl = len(layers)
+    kern = timer(attn(ops.paged_verify_attention)) / nl
+    plain = timer(attn(pa.paged_verify_attention_plain), iters=3) / nl
+    # library yardstick: SDPA over a dense KV gathered beforehand, with
+    # an [S, L] causal mask per slot
+    dense = dense_kv(eng, pt)
+    mask = page_mask(pt, ps, q_pos)[:, None]
+    qd = q.transpose(1, 2)
+    lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
+        qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
+    del dense
+    keys = int((q_pos.amax(dim=1) + 1).sum().item())  # pages read per slot
+    n_bytes = (keys * kv_bytes_per_token(cfg, packed) + 2 * q.numel() * 2
+               + pt.numel() * 4 + q_pos.numel() * 4)
+    n_ops = 4 * s * keys * cfg.n_heads * cfg.head_dim
+    return timing_row(f"paged_verify_attention ({label})", kern, plain, lib,
+                      n_bytes, n_ops, keys=keys, s=s)
 
 
 def nvidia_smi():
@@ -477,8 +819,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.archs import QWEN15_05B
     from repro_torch.kernels import ops
+    from repro_torch.quant.config import QuantConfig
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -501,16 +843,37 @@ def main() -> int:
     log("(b) kernels against their plain versions")
     err_mm = check_samd_matmul(dev, gen)
     err_pa = check_paged_attention(dev, gen)
+    err_verify = check_verify_attention(dev, gen)
+    err_ring = check_ring_fold(dev, gen)
 
     log("(c) serve full-width qwen1.5-0.5b, 4-bit SAMD weights")
     runs = {}
-    for kv_bits in (None, 8):
-        eng, summary, counts = serve(QWEN15_05B, kv_bits, dev)
+    for kv_bits, fmt in ((None, "bf16"), (8, "int8")):
+        eng, summary, counts = serve(
+            f"4-bit, {fmt} KV", dev, {MATMUL, DECODE},
+            quant=QuantConfig(bits=4, kv_bits=kv_bits))
         check_model_against_plain(eng, dev)
-        runs[kv_bits] = (eng, summary, counts)
+        runs[fmt] = (eng, summary, counts)
 
-    log("(d) kernel times at decode shapes "
-        f"(card: {card})")
+    log("(e) speculative serving")
+    spec_k = {run: k for run, _, k in SPEC_RUNS}
+    plain, _, _ = serve("bf16 target, plain decode", dev, {DECODE})
+    plain = plain.finished
+    eng_a, sum_a, counts_a = serve(
+        f"run A: bf16 target, 8-bit draft, K={spec_k['A']}, bf16 KV", dev,
+        {MATMUL, RING, VERIFY}, speculative=spec_k["A"],
+        draft_quant=QuantConfig(bits=8))
+    check_greedy(eng_a, plain, dev)
+    eng_b, sum_b, counts_b = serve(
+        f"run B: 4-bit target as its own draft, K={spec_k['B']}, int8 KV",
+        dev, {MATMUL, RING, VERIFY}, speculative=spec_k["B"],
+        quant=QuantConfig(bits=4, kv_bits=8))
+    check_greedy(eng_b, runs["int8"][0].finished, dev)
+    runs["A"] = (eng_a, sum_a, counts_a)
+    runs["B"] = (eng_b, sum_b, counts_b)
+
+    log(f"(d) kernel times at the main path's shapes (card: {card})")
+
     def entry(name, source, replaces, launches, err, t, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -518,28 +881,51 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "shape": shape}
 
-    # one entry per kernel per serving run, with that run's own launch
-    # count and timed on that run's own weights and pools
+    # one entry per launcher per serving run that launches it, with that
+    # run's own launch count, timed on that run's own weights and pools
     kernels = []
-    for kv_bits, fmt in ((None, "bf16"), (8, "int8")):
-        eng, _, counts = runs[kv_bits]
-        mm = time_samd_matmul(eng, dev, timer)
+    for key, label, bits in (("bf16", "bf16 KV run", 4),
+                             ("int8", "int8 KV run", 4),
+                             ("A", "run A draft", 8),
+                             ("B", "run B draft", 4)):
+        eng, _, counts = runs[key]
+        params = eng._draft_params if eng.speculative else eng.params
+        mm = time_samd_matmul(eng, dev, timer, params, label)
         mm["bound_by"] = bound_ms(mm["bytes"], mm["ops"])[1]
         kernels.append(entry(
-            f"samd_matmul ({fmt} KV run)",
+            f"samd_matmul ({label})",
             "src/repro_torch/kernels/csrc/samd_matmul.cu",
-            "src/repro/kernels/samd_matmul.py:123", counts["samd_matmul"],
-            err_mm, mm, "decode M=8, mean per launch over "
-            "wq,wk,wv,wo,wg,wu,wd of 24 layers, 4-bit"))
-        pa_t = time_paged_attention(eng, dev, timer, kv_bits == 8, gen)
+            "src/repro/kernels/samd_matmul.py:123", counts[MATMUL],
+            err_mm[bits, "temporary", True, 8], mm,
+            "decode M=8, mean per launch over "
+            f"wq,wk,wv,wo,wg,wu,wd of 24 layers, {bits}-bit"))
+    for fmt in ("bf16", "int8"):
+        eng, _, counts = runs[fmt]
+        pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen)
         kernels.append(entry(
-            f"paged_decode_attention ({fmt} KV)",
-            "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:294",
-            counts["paged_attention"], err_pa[fmt], pa_t,
+            f"paged_decode_attention ({fmt} KV)", PA_SOURCE,
+            "src/repro/kernels/paged_attention.py:294", counts[DECODE],
+            err_pa[fmt, 1], pa_t,
             "decode B=8 H=Hkv=16 dh=64 ps=16 n_pp=32, per layer"))
-    time_samd_matmul_prefill(runs[None][0], dev, timer)
-    log("serving: " + json.dumps([runs[k][1] for k in (None, 8)]))
+    log("(d') the speculative launchers at runs A and B's shapes")
+    # each entry's max_abs_err is (b')'s at that run's own shape
+    for key, fmt, r in SPEC_RUNS:
+        eng, _, counts = runs[key]
+        assert eng.speculative == r and (eng._kv_bits == 8) == (fmt == "int8")
+        t = time_ring_fold(eng, dev, timer, gen, f"run {key}, {fmt} KV")
+        kernels.append(entry(
+            f"paged_decode_ring_attention (run {key}, {fmt} KV)", PA_SOURCE,
+            "src/repro/kernels/paged_attention.py:294", counts[RING],
+            err_ring[fmt, r, 1], t, f"draft decode B=8 H=Hkv=16 dh=64 ps=16 "
+            f"n_pp=32, pool to pos-1 + ring R={r}, per layer"))
+        t = time_verify(eng, dev, timer, gen, f"run {key}, {fmt} KV")
+        kernels.append(entry(
+            f"paged_verify_attention (run {key}, {fmt} KV)", PA_SOURCE,
+            "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
+            err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 dh=64 "
+            "ps=16 n_pp=32, per layer"))
+    time_samd_matmul_prefill(runs["bf16"][0], dev, timer)
+    log("serving: " + json.dumps([runs[k][1] for k in runs]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ launch builds (or ``build_all`` builds every kernel in parallel, one
 
 Every exported launcher returns ``cudaGetLastError()`` after its launch;
 :meth:`Kernel.launch` raises when it is not 0 and only then counts the
-launch.
+launch, in a counter of that launcher's own (one source may export
+several launchers, and each is counted apart).
 """
 from __future__ import annotations
 
@@ -43,17 +44,19 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its shared library and its launch count.
+    """One CUDA source, its shared library and a launch count per
+    launcher.
 
     ``functions`` maps each exported C launcher to its ctypes argument
     types; every launcher returns an ``int`` CUDA error code.
+    ``launches`` maps each launcher to the number of launches made.
     """
 
     def __init__(self, name: str, source: str, functions: dict):
         self.name = name
         self.source = CSRC / source
         self.functions = functions
-        self.launches = 0
+        self.launches = dict.fromkeys(functions, 0)
         self.build_log = ""
         self._lib = None
 
@@ -101,12 +104,14 @@ class Kernel:
 
     def launch(self, fn: str, *args) -> None:
         """Call launcher ``fn``; raise on a CUDA error, else count it."""
+        if fn not in self.launches:
+            raise KeyError(f"{self.name} exports no launcher {fn!r}")
         lib = self.lib()
         err = getattr(lib, fn)(*args)
         if err != 0:
             msg = lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({err})")
-        self.launches += 1
+        self.launches[fn] += 1
 
 
 def build_all(kernels) -> None:

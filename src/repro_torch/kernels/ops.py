@@ -23,12 +23,14 @@ def build_kernels() -> None:
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """Launches made so far, one counter per exported launcher (keyed by
+    the launcher's C name)."""
+    return {fn: n for k in KERNELS for fn, n in k.launches.items()}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = dict.fromkeys(k.launches, 0)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -53,10 +55,26 @@ def samd_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, q_pos, *,
-                           k_scale=None, v_scale=None) -> torch.Tensor:
+                           k_scale=None, v_scale=None, extra_k=None,
+                           extra_v=None, extra_pos=None) -> torch.Tensor:
     """Fused decode attention over the paged KV pool: q [B, H, dh] ->
-    [B, H, dh]. Pass ``k_scale``/``v_scale`` iff the pools are packed."""
+    [B, H, dh]. Pass ``k_scale``/``v_scale`` iff the pools are packed.
+    ``extra_k``/``extra_v`` [B, R, Hkv, dh] with ``extra_pos`` [B, R]
+    (-1 = unwritten) fold the speculative draft's ring into the same
+    softmax after the pages; ``q_pos`` then bounds the pool read."""
     fn = (_pa.paged_decode_attention_cuda if _on_cuda(q)
           else _pa.paged_decode_attention_plain)
+    return fn(q, k_pages, v_pages, page_table, q_pos,
+              k_scale=k_scale, v_scale=v_scale, extra_k=extra_k,
+              extra_v=extra_v, extra_pos=extra_pos)
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, q_pos, *,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """Multi-query paged attention (the speculative verify): q [B, S, H,
+    dh] with a position per query, ``q_pos`` [B, S] (-1 = a masked row,
+    which comes out as zeros) -> [B, S, H, dh]."""
+    fn = (_pa.paged_verify_attention_cuda if _on_cuda(q)
+          else _pa.paged_verify_attention_plain)
     return fn(q, k_pages, v_pages, page_table, q_pos,
               k_scale=k_scale, v_scale=v_scale)

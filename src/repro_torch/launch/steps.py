@@ -1,15 +1,16 @@
 """Serving steps over the paged KV pool: ragged decode, batched prefill,
-and in-step sampling (the paged subset of ``repro/launch/steps.py``).
+self-speculative draft + verify, and in-step sampling (the paged subset
+of ``repro/launch/steps.py``).
 
-Each step runs one ``forward`` and samples on the device, so only the
-[B] vector of next token ids crosses to the host.
+Each step samples on the device, so only the next token ids (and, for a
+speculative tick, the accept lengths) cross to the host.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import forward
+from repro_torch.models.model import forward, init_cache
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
@@ -84,3 +85,142 @@ def make_paged_prefill_step(cfg: ArchConfig, page_size: int):
         return torch.where(valid, tok0, -1)
 
     return paged_prefill_step
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decoding: low-bit draft + multi-token paged verify
+# ---------------------------------------------------------------------------
+#
+# One tick: the DRAFT model (the same weights SAMD-packed to a lower bit
+# width) proposes K tokens per slot with K single-token forwards, then the
+# TARGET verifies all K in ONE multi-token forward. Greedy verification is
+# token-identical to plain decode; temperature > 0 uses rejection sampling
+# (accept d with probability min(1, p_t(d) / p_d(d)), resample the first
+# reject from the residual (p_t - p_d)+), so the output distribution is
+# the target's.
+#
+# Draft KV never touches the page pool: each draft forward writes its K/V
+# into a K-column bf16 ring that lives only inside the tick, and reads the
+# pool STRICTLY BELOW the tick's window base (the pool may hold a previous
+# tick's rejected-draft KV at >= the base). The verify writes all K+1
+# tokens through the page table; positions past a slot's ``spec_len``
+# budget are -1 (no write, logits ignored).
+
+def speculative_accept(logits: torch.Tensor, draft_tok: torch.Tensor,
+                       draft_logits: torch.Tensor, spec_len: torch.Tensor,
+                       generator: torch.Generator, temperature: float):
+    """Per-slot accept lengths and output tokens for one speculative tick.
+
+    logits [B, K+1, V] target logits at window positions ``pos..pos+K``
+    (index j > spec_len[b] is garbage, masked by the budget); draft_tok
+    [B, K]; draft_logits [B, K, V]; spec_len [B] draft budgets (0..K).
+
+    Returns (out [B, K+1] int32, n_acc [B] int32): the tick emits
+    ``out[b, :n_acc[b] + 1]``. Greedy: out is the target's argmax (first
+    maximum) at every position and n_acc counts the leading drafts that
+    match it. Sampled: the accepted drafts, then the residual resample at
+    the first reject, or the target's own (bonus) sample when every
+    budgeted draft was accepted. The reference draws the same
+    distributions from ``jax.random``; here the uniforms and the Gumbel
+    noise come from ``generator``.
+    """
+    b, k1, v = logits.shape
+    k = k1 - 1
+    dev = logits.device
+    lf = logits.to(torch.float32)
+    j_idx = torch.arange(1, k + 1, device=dev)[None, :]
+    in_budget = j_idx <= spec_len.to(torch.int64)[:, None]
+    if temperature <= 0:
+        tgt = torch.argmax(lf, dim=-1).to(torch.int32)
+        match = (draft_tok.to(torch.int32) == tgt[:, :k]) & in_budget
+        n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        return tgt, n_acc.to(torch.int32)
+    t = max(temperature, 1e-6)
+    dt = draft_tok.to(torch.int64)
+    pt = torch.softmax(lf[:, :k] / t, dim=-1)
+    pd = torch.softmax(draft_logits.to(torch.float32) / t, dim=-1)
+    pt_d = torch.gather(pt, 2, dt[..., None])[..., 0]
+    pd_d = torch.gather(pd, 2, dt[..., None])[..., 0]
+    ratio = pt_d / pd_d.clamp(min=1e-30)
+    u = torch.rand((b, k), generator=generator, device=dev)
+    ok = (u <= ratio.clamp(max=1.0)) & in_budget
+    n_acc = torch.cumprod(ok.to(torch.int64), dim=1).sum(dim=1)
+    rows = torch.arange(b, device=dev)
+    j_rep = n_acc.clamp(0, k - 1)
+    resid = (pt[rows, j_rep] - pd[rows, j_rep]).clamp(min=0.0)
+    resid = torch.where(resid.sum(dim=-1, keepdim=True) > 0, resid,
+                        pt[rows, j_rep])
+    lg_bonus = lf[rows, n_acc]
+    u = torch.rand((b, v), generator=generator, device=dev)
+    g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    resample = torch.argmax(torch.log(resid.clamp(min=1e-30)) + g, dim=-1)
+    bonus = torch.argmax(lg_bonus / t + g, dim=-1)
+    repl = torch.where(n_acc >= spec_len.to(torch.int64), bonus, resample)
+    j_grid = torch.arange(k + 1, device=dev)[None, :]
+    drafts_pad = torch.cat([dt, dt[:, -1:]], dim=1)
+    out = torch.where(j_grid < n_acc[:, None], drafts_pad, repl[:, None])
+    return out.to(torch.int32), n_acc.to(torch.int32)
+
+
+def make_draft_step(cfg: ArchConfig, max_len: int, page_size: int,
+                    k_spec: int):
+    """Draft half of the speculative tick: ``k_spec`` single-token low-bit
+    forwards per slot. Each writes its K/V into a tick-local bf16 ring
+    (``init_cache(cfg, B, k_spec)``, never the pool) and reads the pool
+    only below the window base; attention runs the decode kernel with
+    the ring fold. Returns (draft_tok [B, K] int32, draft_logits
+    [B, K, V])."""
+    if k_spec < 1:
+        raise ValueError(f"k_spec must be >= 1, got {k_spec}")
+
+    def draft_step(draft_params, tokens, cache, positions, page_table,
+                   generator, temperature):
+        b = tokens.shape[0]
+        pos = positions.to(torch.int64).clamp(0, max_len - 1)
+        pool_bound = pos - 1  # pool history strictly below the window
+        ring = init_cache(cfg, b, k_spec, device=tokens.device)
+        cur = tokens
+        drafts, dlogits = [], []
+        for j in range(k_spec):
+            lg = forward(
+                draft_params, cur, cfg, positions=(pos + j)[:, None],
+                cache=ring, cache_index=j, page_table=page_table,
+                page_size=page_size, paged_attn="fused", pool_cache=cache,
+                pool_bound=pool_bound,
+            )[:, -1]
+            d = sample_tokens(lg, generator, temperature)
+            drafts.append(d)
+            dlogits.append(lg)
+            cur = d[:, None].to(tokens.dtype)
+        return torch.stack(drafts, dim=1), torch.stack(dlogits, dim=1)
+
+    return draft_step
+
+
+def make_speculative_verify_step(cfg: ArchConfig, max_len: int,
+                                 page_size: int, k_spec: int):
+    """Verify half: ONE target forward over ``[t0, d_1..d_K]`` at
+    positions ``pos..pos+K`` (-1 past each slot's ``spec_len``): all
+    K+1 KV entries are written through the page table and attention runs
+    the paged verify kernel; then the accept rule. Returns (out
+    [B, K+1], n_acc [B]), -1 / 0 on inactive slots."""
+
+    def verify_step(params, tokens, draft_tok, draft_lg, cache, positions,
+                    active, page_table, spec_len, generator, temperature):
+        pos = positions.to(torch.int64).clamp(0, max_len - 1)
+        seq = torch.cat([tokens, draft_tok.to(tokens.dtype)], dim=1)
+        steps_i = torch.arange(k_spec + 1, device=tokens.device)[None, :]
+        qpos = torch.where(steps_i <= spec_len.to(torch.int64)[:, None],
+                           pos[:, None] + steps_i, -1)
+        logits = forward(
+            params, seq, cfg, positions=qpos, cache=cache,
+            page_table=page_table, page_size=page_size, paged_attn="fused",
+        )
+        out, n_acc = speculative_accept(logits, draft_tok, draft_lg,
+                                        spec_len, generator, temperature)
+        out = torch.where(active[:, None], out, -1)
+        n_acc = torch.where(active, n_acc, 0)
+        return out, n_acc
+
+    return verify_step
+

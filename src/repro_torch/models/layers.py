@@ -205,6 +205,13 @@ def _gathered_pool_kv(pool: dict, page_table, page_size: int, dtype):
             _paged_gather(pool["v"], page_table, page_size).to(dtype))
 
 
+def _cache_write(buf, val, cache_index: int) -> None:
+    """Write ``val`` [B, S, ...] into the ring ``buf`` [B, T, ...] at
+    columns ``cache_index..cache_index + S - 1``, in place (the
+    reference's lockstep ``dynamic_update_slice``)."""
+    buf[:, cache_index:cache_index + val.shape[1]] = val.to(buf.dtype)
+
+
 def _quant_kv(t: torch.Tensor):
     """int8 KV write: per-(token, kv-head) symmetric scale."""
     tf = t.to(torch.float32)
@@ -216,17 +223,26 @@ def _quant_kv(t: torch.Tensor):
 
 def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                     *, kv_cache=None, page_table=None, page_size: int = 0,
-                    paged_attn: str = "gather"):
+                    paged_attn: str = "gather", cache_index: int = 0,
+                    pool_kv=None, pool_bound=None):
     """norm -> qkv -> rope -> attend -> out; returns the residual delta.
 
     With ``kv_cache`` (one layer's pools) and ``page_table``, this token
     block's K/V are written into the pool at each token's logical
     position (bf16, or SAMD-packed int8 lanes + scales when the pool is
-    int32) before attention. ``paged_attn="fused"`` with one query per
-    slot (decode) attends straight off the pool through
-    ``kernels.ops.paged_decode_attention``; otherwise (prefill, or the
-    "gather" reference) the slots' pages are gathered into a dense view.
-    Without a cache, attention is causal over the block itself.
+    int32) before attention. ``paged_attn="fused"`` attends straight off
+    the pool: one query per slot (decode) through
+    ``kernels.ops.paged_decode_attention``, a block of queries per slot
+    (the speculative verify) through ``kernels.ops.paged_verify_attention``;
+    ``"gather"`` (also prefill's path) gathers the slots' pages into a
+    dense view. Without a cache, attention is causal over the block.
+
+    ``pool_kv`` switches to the speculative DRAFT layout: ``kv_cache`` is
+    then the draft's ring, written here at column ``cache_index``, and
+    the pool in ``pool_kv`` is READ ONLY at positions <= ``pool_bound``
+    [B] (above it the pool may hold a previous tick's rejected drafts).
+    Fused, the decode kernel folds the ring in after the pool's pages;
+    "gather" concatenates the gathered pool with the ring.
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -250,6 +266,29 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
 
     if kv_cache is None:
         att = attention(q, k, v, positions, positions, chunk=cfg.attn_chunk)
+    elif pool_kv is not None:
+        ring = kv_cache
+        _cache_write(ring["k"], k, cache_index)
+        _cache_write(ring["v"], v, cache_index)
+        _cache_write(ring["pos"], positions, cache_index)
+        if paged_attn == "fused" and s == 1:
+            att = kernel_ops.paged_decode_attention(
+                q[:, 0].contiguous(), pool_kv["k"], pool_kv["v"],
+                page_table, pool_bound.to(torch.int32).contiguous(),
+                k_scale=pool_kv.get("k_scale"),
+                v_scale=pool_kv.get("v_scale"), extra_k=ring["k"],
+                extra_v=ring["v"], extra_pos=ring["pos"],
+            )[:, None]
+        else:
+            k_pos = _paged_key_positions(page_table, page_size)
+            k_pos = torch.where(k_pos <= pool_bound[:, None], k_pos, -1)
+            pool_k, pool_v = _gathered_pool_kv(pool_kv, page_table,
+                                               page_size, q.dtype)
+            att = attention(
+                q, torch.cat([pool_k, ring["k"].to(q.dtype)], dim=1),
+                torch.cat([pool_v, ring["v"].to(q.dtype)], dim=1), positions,
+                torch.cat([k_pos, ring["pos"].to(k_pos.dtype)], dim=1),
+                chunk=cfg.attn_chunk)
     else:
         pool = kv_cache
         if pool["k"].dtype == torch.int32:
@@ -270,6 +309,12 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                 positions[:, 0].to(torch.int32).contiguous(),
                 k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
             )[:, None]
+        elif paged_attn == "fused":
+            att = kernel_ops.paged_verify_attention(
+                q.contiguous(), pool["k"], pool["v"], page_table,
+                positions.to(torch.int32).contiguous(),
+                k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+            )
         else:
             k_pos = _paged_key_positions(page_table, page_size)
             k_full, v_full = _gathered_pool_kv(pool, page_table, page_size,

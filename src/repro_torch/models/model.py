@@ -97,6 +97,23 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
     return {"layers": [kv_pool() for _ in range(cfg.n_layers)]}
 
 
+def init_cache(cfg: ArchConfig, batch: int, length: int,
+               device="cuda") -> dict:
+    """The speculative draft's tick-local KV ring: per layer bf16 ``k``/
+    ``v`` [batch, length, Hkv, dh] and ``pos`` [batch, length] int32, -1
+    where nothing was written (the reference's ``init_cache`` in the
+    layout the draft uses; no other caller needs a ring)."""
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+
+    def ring():
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "pos": torch.full(shape[:2], -1, dtype=torch.int32,
+                                  device=device)}
+
+    return {"layers": [ring() for _ in range(cfg.n_layers)]}
+
+
 def copy_paged_page(cache: dict, src: int, dst: int) -> None:
     """Copy pool page ``src`` into page ``dst`` in every layer's pools, in
     place: the copy-on-write fork of prefix sharing."""
@@ -109,14 +126,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
             page_table: Optional[torch.Tensor] = None,
-            page_size: int = 0, paged_attn: str = "gather"):
+            page_size: int = 0, paged_attn: str = "gather",
+            cache_index: int = 0, pool_cache: Optional[dict] = None,
+            pool_bound: Optional[torch.Tensor] = None):
     """Returns logits [B, S, vocab] bf16.
 
     With ``cache`` (``init_paged_cache``) and ``page_table`` [B, n_pp],
     every token's K/V is written into the pools IN PLACE at its logical
     position (-1 = padding, not written) and attention reads the pools;
     ``paged_attn="fused"`` routes single-token decode attention through
-    the paged decode kernel, ``"gather"`` keeps the dense page gather.
+    the paged decode kernel and a multi-token block (the speculative
+    verify) through the paged verify kernel, ``"gather"`` keeps the
+    dense page gather.
+
+    ``pool_cache`` switches to the speculative DRAFT layout: ``cache`` is
+    then the draft's ring (``init_cache``), written IN PLACE at column
+    ``cache_index``, while the paged pools in ``pool_cache`` are read
+    only, at positions <= ``pool_bound`` [B].
     """
     b, s = tokens.shape
     x = params["embed"][tokens].to(torch.bfloat16)
@@ -124,10 +150,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     for i, p in enumerate(params["blocks"]):
         layer_cache = cache["layers"][i] if cache is not None else None
+        pool_layer = (pool_cache["layers"][i] if pool_cache is not None
+                      else None)
         x = x + L.attention_block(
             p["attn"], x, positions, cfg, kv_cache=layer_cache,
             page_table=page_table, page_size=page_size,
-            paged_attn=paged_attn,
+            paged_attn=paged_attn, cache_index=cache_index,
+            pool_kv=pool_layer, pool_bound=pool_bound,
         )
         x = x + L.mlp_block(p["mlp"], x, cfg)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)

@@ -25,11 +25,21 @@ scheduling contract is the reference's:
     that cannot fit the pool alone is retired ``truncated``;
   * ``prefix_retain=N`` parks up to N refcount-0 prefix pages in an LRU
     pool so sharing survives non-overlapping residencies;
-  * ``max_queue`` bounds the queue (overflow is rejected with ``error``).
+  * ``max_queue`` bounds the queue (overflow is rejected with ``error``);
+  * ``speculative=K`` > 0 runs one self-speculative tick instead of the
+    decode step: the draft (the same weights SAMD-packed by
+    ``draft_quant``, default 4-bit; a quantized target is its own draft
+    and takes no ``draft_quant``) proposes up to K tokens per slot with K
+    single-token forwards over a tick-local ring (pool read only, below
+    the window), and the target verifies them in ONE multi-token forward
+    through the paged verify kernel (``self._draft_step``, then
+    ``self._verify_step``); each slot consumes 1 to K+1 tokens a tick.
+    Greedy output is token-identical to plain decode; temperature > 0
+    verifies by rejection sampling. Lookahead pages come from the
+    reservation or the free list and never preempt (``_spec_lens``).
 
-Not ported yet: speculative decoding, the per-slot KV ring
-(``kv_mode="ring"``), the per-row reference decode and the admission-time
-lane-safety check (``verify=``).
+Not ported yet: the per-slot KV ring (``kv_mode="ring"``), the per-row
+reference decode and the admission-time lane-safety check (``verify=``).
 
 The KV pools (``self.cache``) are written in place by every step (the
 reference donates them to its jitted steps instead).
@@ -206,11 +216,19 @@ class ServingEngine:
                  prefix_sharing: bool = True,
                  prefix_retain: Optional[int] = None,
                  max_queue: Optional[int] = None,
+                 speculative: int = 0,
+                 draft_quant: QuantConfig | None = None,
                  device="cuda"):
         """``params`` are unquantized weights (``build_template`` layout;
-        random from ``seed`` when None); ``quant`` packs them here."""
+        random from ``seed`` when None); ``quant`` packs them here, and
+        with ``speculative`` > 0 and an unquantized target, ``draft_quant``
+        (default ``QuantConfig(bits=4)``; ``enabled=False`` shares the
+        target's weights) packs the draft from them too. A quantized
+        target is its own draft: ``draft_quant`` with it raises."""
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if speculative < 0:
+            raise ValueError(f"speculative must be >= 0, got {speculative}")
         if max_queue is not None and max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         self.cfg = cfg
@@ -230,10 +248,30 @@ class ServingEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_from_spec(template, gen, device=self.device)
         self.quant = quant or QuantConfig(enabled=False)
+        raw_params = params
         if self.quant.enabled:
             params = quantize_params(params, template, self.quant)
         self.params = params
         self._kv_bits = self.quant.kv_bits if self.quant.enabled else None
+        self.speculative = int(speculative)
+        if self.speculative:
+            if self.quant.enabled:
+                if draft_quant is not None:
+                    raise ValueError(
+                        "a quantized target is its own draft: draft_quant "
+                        "applies only to an unquantized target")
+                self.draft_quant = self.quant
+                self._draft_params = self.params
+            else:
+                dq = draft_quant or QuantConfig(bits=4)
+                self.draft_quant = dq
+                self._draft_params = (
+                    quantize_params(raw_params, template, dq)
+                    if dq.enabled else self.params)
+            self._draft_step = steps_mod.make_draft_step(
+                cfg, max_len, page_size, self.speculative)
+            self._verify_step = steps_mod.make_speculative_verify_step(
+                cfg, max_len, page_size, self.speculative)
         self._decode_step = steps_mod.make_paged_ragged_serve_step(
             cfg, max_len, page_size)
         self._prefill_step = steps_mod.make_paged_prefill_step(
@@ -277,6 +315,9 @@ class ServingEngine:
             "prefix_tokens_saved": 0,   # prompt tokens prefill skipped
             "retained_hits": 0,         # refcount-0 retained pages revived
             "cow_forks": 0,             # copy-on-write page copies
+            "spec_ticks": 0,            # speculative draft+verify ticks
+            "draft_proposed": 0,        # draft tokens offered to verify
+            "draft_accepted": 0,        # draft tokens that became output
             "preemptions": 0,           # slots preempted for recompute
             "oop_retired": 0,           # slots truncated on pool exhaustion
             "rejected": 0,              # requests refused before prefill
@@ -646,6 +687,24 @@ class ServingEngine:
             if victim == i:
                 return None
 
+    def _claim_reserved_page(self, i: int) -> Optional[int]:
+        """One page from slot ``i``'s growth reservation, or None if it has
+        none left (the admission horizon covers every write the request
+        can make, speculative lookahead included)."""
+        if self.slot_reserved[i] <= 0:
+            return None
+        page = self._allocator.claim_reserved(1)[0]
+        self.slot_reserved[i] -= 1
+        return page
+
+    def _bind_next_page(self, i: int, page: int) -> None:
+        """Append ``page`` as slot ``i``'s next block: the one place plain
+        and lookahead grants do their bookkeeping."""
+        blk = int(self.slot_pages[i])
+        self.page_table[i, blk] = page
+        self.slot_pages[i] = blk + 1
+        self.stats["page_grants"] += 1
+
     def _grant_pages(self):
         """Before the tick's write at ``slot_pos[i]``, make sure the page
         covering it exists and is held by ``i`` alone (COW forks happen
@@ -659,18 +718,42 @@ class ServingEngine:
                 assert self._allocator.refcount[page] == 1, (
                     "write cursor reached a shared page", i, block, page)
                 continue
-            if self.slot_reserved[i] > 0:
-                page = self._allocator.claim_reserved(1)[0]
-                self.slot_reserved[i] -= 1
-            else:
+            page = self._claim_reserved_page(int(i))
+            if page is None:
                 page = self._alloc_or_preempt(int(i))
                 if page is None:
                     continue
-            blk = int(self.slot_pages[i])
-            self.page_table[i, blk] = page
-            self.slot_pages[i] = blk + 1
-            self.stats["page_grants"] += 1
+            self._bind_next_page(int(i), page)
         self._note_peak()
+
+    def _spec_lens(self) -> np.ndarray:
+        """Per-slot draft budgets for this tick, with lookahead grants:
+        the verify writes positions ``pos..pos + spec_len[i]``, so every
+        page covering that span must exist first. The budget is capped
+        by K, the request's remaining tokens, the cache end and what the
+        pool can grant WITHOUT preempting (lookahead never evicts a
+        resident request)."""
+        ps = self.page_size
+        spec = np.zeros(self.max_batch, np.int32)
+        for i in np.nonzero(self.active)[0]:
+            req = self.slots[i]
+            pos = int(self.slot_pos[i])
+            want = max(0, min(self.speculative,
+                              req.max_tokens - len(req.generated) - 1,
+                              self.max_len - 1 - pos))
+            last_block = (pos + want) // ps
+            while int(self.slot_pages[i]) <= last_block:
+                page = self._claim_reserved_page(int(i))
+                if page is None:
+                    got = self._allocator.alloc(1)  # lookahead: no preempt
+                    if got is None:
+                        break
+                    page = got[0]
+                self._bind_next_page(int(i), page)
+            cap = int(self.slot_pages[i]) * ps - 1 - pos
+            spec[i] = min(want, max(0, cap))
+        self._note_peak()
+        return spec
 
     def _pow2_width(self, pages: int) -> int:
         """Page-table width covering ``pages``: next power of two, capped
@@ -712,14 +795,17 @@ class ServingEngine:
         return False
 
     def step(self):
-        """One engine tick: admit, grant pages, ONE ragged decode step,
-        retire. Returns False when there was nothing to decode."""
+        """One engine tick: admit, grant pages, ONE ragged decode step (or
+        one speculative draft + verify), retire. Returns False when there
+        was nothing to decode."""
         self._admit()
         if not self.active.any():
             return False
         self._grant_pages()
         if not self.active.any():
             return True  # progress: slots were preempted or retired
+        if self.speculative:
+            return self._step_speculative()
         next_ids = self._decode_step(
             self.params,
             self._to_device(self.slot_next[:, None].astype(np.int64)),
@@ -732,6 +818,42 @@ class ServingEngine:
         next_ids = next_ids.cpu().numpy()  # the one host sync per tick
         for i in np.nonzero(self.active)[0]:
             self._advance_slot(int(i), int(next_ids[i]))
+        return True
+
+    def _step_speculative(self) -> bool:
+        """One speculative tick: grant lookahead pages (``spec_len`` [B]
+        caps each slot's draft budget, 0..K, so slots near their token
+        budget, the cache end or an ungranted page degrade to one-token
+        decode), the draft step then the verify step, then consume each
+        slot's accepted run plus the verify's own token one at a time,
+        stopping where the slot retires. KV the verify wrote past the
+        accepted run is overwritten by the next tick's window before any
+        query reads it."""
+        spec_len = self._spec_lens()
+        tokens = self._to_device(self.slot_next[:, None].astype(np.int64))
+        pos = self._to_device(self.slot_pos)
+        table = self._to_device(self._active_table())
+        draft_tok, draft_lg = self._draft_step(
+            self._draft_params, tokens, self.cache, pos, table, self._gen,
+            self.temperature)
+        out, n_acc = self._verify_step(
+            self.params, tokens, draft_tok, draft_lg, self.cache, pos,
+            self._to_device(self.active), table, self._to_device(spec_len),
+            self._gen, self.temperature)
+        self.stats["decode_steps"] += 1
+        self.stats["spec_ticks"] += 1
+        out = out.cpu().numpy()  # the one host sync per tick
+        n_acc = n_acc.cpu().numpy()
+        for i in np.nonzero(self.active)[0]:
+            self.stats["draft_proposed"] += int(spec_len[i])
+            used = 0
+            for m in range(int(n_acc[i]) + 1):
+                used = m + 1
+                if self._advance_slot(int(i), int(out[i, m])):
+                    break
+            # drafts count as accepted only when they became output: a
+            # slot retiring mid-run discards the rest of its run
+            self.stats["draft_accepted"] += min(used, int(n_acc[i]))
         return True
 
     def run_to_completion(self, max_ticks: int = 10_000):

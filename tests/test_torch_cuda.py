@@ -55,8 +55,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     x = torch.randn(3, 40, generator=gen)
     before = ops.launch_counts()
     out = ops.samd_matmul(x, packed, scale, 40, cfg)
-    assert ops.launch_counts() == before
     _close(out, mm.samd_matmul_plain(x, packed, scale, 40, cfg), 1e-6)
+    args, kw = _paged_inputs("cpu", gen, 3, 2, 2, 16, 4, 3, False)
+    ring = _ring_inputs("cpu", gen, 3, 4, 2, 16)
+    _close(ops.paged_decode_attention(*args, **kw, **ring),
+           pa.paged_decode_attention_plain(*args, **kw, **ring), 1e-6)
+    vargs, vkw = _verify_inputs("cpu", gen, 3, 2, 2, 2, 16, 4, 3, True)
+    _close(ops.paged_verify_attention(*vargs, **vkw),
+           pa.paged_verify_attention_plain(*vargs, **vkw), 1e-6)
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -81,9 +88,9 @@ def test_samd_matmul_kernel_matches_plain(cuda, m, k, n, bits, spacer,
         packed = samd.pack(codes, fmt).t().contiguous()
         scale = torch.rand(1, n, generator=gen, device=cuda)
     x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
-    before = mm.KERNEL.launches
+    before = ops.launch_counts()["samd_matmul_launch"]
     got = ops.samd_matmul(x, packed, scale, k, cfg, signed=signed)
-    assert mm.KERNEL.launches == before + 1
+    assert ops.launch_counts()["samd_matmul_launch"] == before + 1
     _close(got, mm.samd_matmul_plain(x, packed, scale, k, cfg,
                                      signed=signed))
 
@@ -142,11 +149,144 @@ def _paged_inputs(dev, gen, b, hkv, g, dh, ps, n_pp, packed):
 def test_paged_attention_kernel_matches_plain(cuda, hkv, g, dh, ps, packed):
     gen = torch.Generator(device=cuda).manual_seed(hkv * g + packed)
     args, kw = _paged_inputs(cuda, gen, 6, hkv, g, dh, ps, 5, packed)
-    before = pa.KERNEL.launches
+    before = ops.launch_counts()
     got = ops.paged_decode_attention(*args, **kw)
-    assert pa.KERNEL.launches == before + 1
+    after = ops.launch_counts()
+    assert after["paged_decode_attention_launch"] == (
+        before["paged_decode_attention_launch"] + 1)
+    assert after["paged_decode_ring_attention_launch"] == (
+        before["paged_decode_ring_attention_launch"])
     _close(got, pa.paged_decode_attention_plain(*args, **kw))
     assert (got[1] == 0).all(), "a slot with no valid key emits zeros"
+
+
+def _ring_inputs(dev, gen, b, r, hkv, dh):
+    """The draft ring: slot i has its first i % (r + 1) entries written
+    (slot 0 none), the rest at -1."""
+    kv = torch.randn((2, b, r, hkv, dh), generator=gen, device=dev)
+    epos = torch.full((b, r), -1, dtype=torch.int32, device=dev)
+    for i in range(b):
+        n = i % (r + 1)
+        epos[i, :n] = 500 + torch.arange(n, dtype=torch.int32, device=dev)
+    return dict(extra_k=kv[0].to(torch.bfloat16),
+                extra_v=kv[1].to(torch.bfloat16), extra_pos=epos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("hkv,g,dh,ps,r", [(16, 1, 64, 16, 4),
+                                           (4, 4, 64, 16, 2),
+                                           (2, 2, 128, 8, 12)])
+def test_ring_fold_kernel_matches_plain(cuda, hkv, g, dh, ps, r, packed):
+    """The decode kernel with the draft ring folded in after the pages;
+    r = 12 > ps = 8 stages more ring entries than a page holds. Slot 1
+    (no page) attends to its ring alone; slot 0 (no ring entry) keeps
+    its pool-only result."""
+    gen = torch.Generator(device=cuda).manual_seed(hkv * g + r + packed)
+    b = 6
+    args, kw = _paged_inputs(cuda, gen, b, hkv, g, dh, ps, 5, packed)
+    ring = _ring_inputs(cuda, gen, b, r, hkv, dh)
+    before = ops.launch_counts()
+    got = ops.paged_decode_attention(*args, **kw, **ring)
+    after = ops.launch_counts()
+    assert after["paged_decode_ring_attention_launch"] == (
+        before["paged_decode_ring_attention_launch"] + 1)
+    assert after["paged_decode_attention_launch"] == (
+        before["paged_decode_attention_launch"])
+    _close(got, pa.paged_decode_attention_plain(*args, **kw, **ring))
+    _close(got[0], ops.paged_decode_attention(*args, **kw)[0])
+    assert (got[1] != 0).any()
+    none = dict(ring, extra_pos=torch.full_like(ring["extra_pos"], -1))
+    empty = ops.paged_decode_attention(*args, **kw, **none)
+    assert (empty[1] == 0).all(), "no page and no ring entry emits zeros"
+
+
+def _verify_inputs(dev, gen, b, s, hkv, g, dh, ps, n_pp, packed):
+    """A verify block as the engine makes it: slot i at position base_i
+    with draft budget spec_i has rows base_i..base_i + spec_i, then -1,
+    and the pages covering that window, then -1. Slot 1 is inactive
+    (table all -1) and slot 2 has pages but every row at -1."""
+    (q, kp, vp, _, _), kw = _paged_inputs(dev, gen, b, hkv, g * s, dh, ps,
+                                          n_pp, packed)
+    q = q.reshape(b, hkv, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, s, hkv * g, dh).contiguous()
+    perm = torch.randperm(kp.shape[0], generator=gen, device=dev).int()
+    pt = torch.full((b, n_pp), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for i in range(b):
+        spec = int(torch.randint(0, s, (1,), generator=gen, device=dev))
+        base = int(torch.randint(0, n_pp * ps - spec, (1,), generator=gen,
+                                 device=dev))
+        if i == 1:
+            continue
+        own = (base + spec) // ps + 1
+        pt[i, :own] = perm[i * n_pp:i * n_pp + own]
+        if i != 2:
+            q_pos[i, :spec + 1] = base + torch.arange(
+                spec + 1, dtype=torch.int32, device=dev)
+    return (q, kp, vp, pt, q_pos), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("s,hkv,g,dh,ps", [(2, 16, 1, 64, 16),
+                                           (5, 16, 1, 64, 16),
+                                           (5, 4, 4, 64, 16),
+                                           (3, 8, 5, 128, 16)])
+def test_verify_kernel_matches_plain(cuda, s, hkv, g, dh, ps, packed):
+    """Rows at -1, an inactive slot and a slot with every row at -1 come
+    out as exact zeros; (3, 8, 5, 128) is qwen3-14b's GQA at S = 3."""
+    gen = torch.Generator(device=cuda).manual_seed(s * hkv + g + packed)
+    args, kw = _verify_inputs(cuda, gen, 8, s, hkv, g, dh, ps, 32, packed)
+    before = ops.launch_counts()["paged_verify_attention_launch"]
+    got = ops.paged_verify_attention(*args, **kw)
+    assert ops.launch_counts()["paged_verify_attention_launch"] == before + 1
+    _close(got, pa.paged_verify_attention_plain(*args, **kw))
+    dead = args[4] < 0
+    assert (got[dead] == 0).all() and (got[1] == 0).all()
+    assert (got[~dead] != 0).any(dim=-1).all()
+
+
+@pytest.mark.cuda
+def test_verify_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args, kw = _verify_inputs(cuda, gen, 3, 2, 2, 1, 64, 16, 2, False)
+    q, kp, vp, pt, q_pos = args
+    with pytest.raises(TypeError):
+        ops.paged_verify_attention(q.float(), kp, vp, pt, q_pos)
+    with pytest.raises(ValueError):
+        ops.paged_verify_attention(q, kp, vp, pt, q_pos[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [None, 8])
+def test_speculative_serving_on_card_launches_every_kernel(cuda, kv_bits):
+    """A speculative engine on the card (4-bit target, its own draft)
+    drafts through the ring-fold launcher, verifies through the verify
+    launcher, and serves every request in full."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = smoke_config("qwen3-14b").scaled(d_model=256, head_dim=64,
+                                           d_ff=512, vocab=256)
+    eng = ServingEngine(cfg, None, quant=QuantConfig(bits=4,
+                                                     kv_bits=kv_bits),
+                        max_batch=4, max_len=64, page_size=8,
+                        speculative=3, device=cuda)
+    for i in range(6):
+        eng.submit(Request(rid=i, prompt=(torch.arange(5 + 3 * i) * 7 + i)
+                           .numpy() % 256, max_tokens=10))
+    ops.reset_launch_counts()
+    done = eng.run_to_completion()
+    counts = ops.launch_counts()
+    for fn in ("samd_matmul_launch", "paged_decode_ring_attention_launch",
+               "paged_verify_attention_launch"):
+        assert counts[fn] > 0, counts
+    # every tick is a speculative one: the plain decode launcher idles
+    assert counts["paged_decode_attention_launch"] == 0, counts
+    assert eng.stats["spec_ticks"] > 0
+    assert len(done) == 6
+    assert all(r.error is None and not r.truncated
+               and len(r.generated) == 10 for r in done)
 
 
 @pytest.mark.cuda

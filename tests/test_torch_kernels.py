@@ -18,10 +18,12 @@ import numpy as np  # noqa: E402
 
 from repro.core import samd as jsamd  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import paged_attention as jpa  # noqa: E402
 from repro.quant import QuantConfig as JQuantConfig  # noqa: E402
 from repro.quant import pack_weights as j_pack_weights  # noqa: E402
 from repro.quant.packing import pack_int8_lanes as j_pack_int8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import samd_matmul as mm  # noqa: E402
 from repro_torch.quant.config import QuantConfig  # noqa: E402
 
@@ -169,6 +171,150 @@ def test_paged_attention_plain_bf16_pools():
     got, want = _run_both(*case)
     np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
     assert (got[1] == 0).all()
+
+
+def _ring(b, r, hkv, dh, seed):
+    """A draft ring [B, R, Hkv, dh] whose slot i has its first i % (R+1)
+    entries written (slot 0: none, so it keeps its pool-only state)."""
+    rng = np.random.default_rng(seed)
+    kv = rng.normal(size=(2, b, r, hkv, dh)).astype(np.float32)
+    epos = np.full((b, r), -1, np.int32)
+    for i in range(b):
+        n = i % (r + 1)
+        epos[i, :n] = 40 + np.arange(n)
+    return kv[0], kv[1], epos
+
+
+# packed pools hold int8 lanes, so bf16 is a case of bf16 pools only
+POOL_DTYPES = [(False, "f32"), (True, "f32"), (False, "bf16")]
+
+
+@pytest.mark.parametrize("packed,dtype", POOL_DTYPES)
+@pytest.mark.parametrize("g", [1, 4])
+def test_ring_fold_plain_matches_jax_lowering(g, packed, dtype):
+    """The draft's decode: pool pages read up to ``q_pos`` (ragged tables
+    with -1 pages, an empty slot), then the ring folded in with entries
+    at -1 skipped. Against the reference's jnp lowering, which is where
+    the reference computes the fold."""
+    q, (kp, vp, ks, vs), pt, pos, _ = _paged_case(
+        b=5, hkv=2, g=g, dh=16, ps=8, n_pp=3, packed=packed, dtype=dtype,
+        seed=20 + g + 2 * packed)
+    ek, ev, epos = _ring(5, 3, 2, 16, seed=g)
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def jarr(a):
+        return jnp.asarray(a) if packed else jnp.asarray(a, jd)
+
+    def tarr(a):
+        return _to_torch_words(a) if packed else torch.from_numpy(a).to(td)
+
+    scales = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    want = np.asarray(jpa.paged_decode_attention_xla(
+        jnp.asarray(q, jd), jarr(kp), jarr(vp), jnp.asarray(pt),
+        jnp.asarray(pos), extra_k=jnp.asarray(ek, jd),
+        extra_v=jnp.asarray(ev, jd), extra_pos=jnp.asarray(epos),
+        **{k: jnp.asarray(v) for k, v in scales.items()}), np.float32)
+    got = ops.paged_decode_attention(
+        torch.from_numpy(q).to(td), tarr(kp), tarr(vp), torch.from_numpy(pt),
+        torch.from_numpy(pos), extra_k=torch.from_numpy(ek).to(td),
+        extra_v=torch.from_numpy(ev).to(td),
+        extra_pos=torch.from_numpy(epos),
+        **{k: torch.from_numpy(v) for k, v in scales.items()})
+    got = got.float().numpy()
+    tol = BF16_TOL if dtype == "bf16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    # slot 1 has no page but ring entries: the ring alone; a slot with
+    # neither would emit zeros
+    assert np.abs(got[1]).max() > 0
+
+
+def _verify_case(b, s, hkv, g, dh, ps, n_pp, packed, seed):
+    """A verify block as the engine makes it: slot i sits at position
+    base_i with a draft budget spec_i, so its rows are base_i..base_i +
+    spec_i and -1 after; its table holds the pages covering that window
+    and -1 after. Slot 1 is inactive (table all -1), slot 2 has every
+    row at -1 but pages, and windows cross page boundaries, so a row
+    meets pages whose keys are all past its position."""
+    rng = np.random.default_rng(seed)
+    q, pools, _, _, _ = _paged_case(b, hkv, g * s, dh, ps, n_pp, packed,
+                                    "f32", seed)
+    q = q.reshape(b, hkv, g, s, dh).transpose(0, 3, 1, 2, 4).reshape(
+        b, s, hkv * g, dh).copy()
+    p = pools[0].shape[0]
+    perm = rng.permutation(p)
+    pt = np.full((b, n_pp), -1, np.int32)
+    q_pos = np.full((b, s), -1, np.int32)
+    for i in range(b):
+        spec = int(rng.integers(0, s))
+        base = int(rng.integers(0, n_pp * ps - spec))
+        if i == 1:
+            continue
+        own = (base + spec) // ps + 1
+        pt[i, :own] = perm[i * n_pp:i * n_pp + own]
+        if i != 2:
+            q_pos[i, :spec + 1] = base + np.arange(spec + 1)
+    return q, pools, pt, q_pos
+
+
+@pytest.mark.parametrize("packed,dtype", POOL_DTYPES)
+@pytest.mark.parametrize("g,s", [(1, 2), (1, 5), (4, 3)])
+def test_verify_attention_plain_matches_pallas_kernel(g, s, packed, dtype):
+    """Multi-query verify: S queries per slot with positions at -1 past
+    each slot's budget; ragged tables, an empty slot and a slot whose
+    rows are all -1 emit exact zeros on those rows."""
+    q, (kp, vp, ks, vs), pt, q_pos = _verify_case(
+        b=5, s=s, hkv=2, g=g, dh=16, ps=4, n_pp=4, packed=packed,
+        seed=30 + 7 * g + s + packed)
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def jarr(a):
+        return jnp.asarray(a) if packed else jnp.asarray(a, jd)
+
+    def tarr(a):
+        return _to_torch_words(a) if packed else torch.from_numpy(a).to(td)
+
+    scales = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    want = np.asarray(jops.paged_verify_attention(
+        jnp.asarray(q, jd), jarr(kp), jarr(vp), jnp.asarray(pt),
+        jnp.asarray(q_pos), interpret=True,
+        **{k: jnp.asarray(v) for k, v in scales.items()}), np.float32)
+    got = ops.paged_verify_attention(
+        torch.from_numpy(q).to(td), tarr(kp), tarr(vp), torch.from_numpy(pt),
+        torch.from_numpy(q_pos),
+        **{k: torch.from_numpy(v) for k, v in scales.items()})
+    got = got.float().numpy()
+    tol = BF16_TOL if dtype == "bf16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    dead = q_pos < 0
+    assert (got[dead] == 0).all() and (got[1] == 0).all()
+    assert (got[~dead] != 0).any(axis=-1).all()
+
+
+def test_launch_counts_are_per_launcher():
+    """One counter per exported launcher, not per source: the decode,
+    ring-fold and verify launchers of one .cu file count apart."""
+    counts = ops.launch_counts()
+    assert set(counts) == {
+        "samd_matmul_launch", "paged_decode_attention_launch",
+        "paged_decode_ring_attention_launch",
+        "paged_verify_attention_launch"}
+    k = pa.KERNEL
+    saved = dict(k.launches)
+    try:
+        k.launches["paged_verify_attention_launch"] += 3
+        now = ops.launch_counts()
+        assert now["paged_verify_attention_launch"] == (
+            counts["paged_verify_attention_launch"] + 3)
+        assert now["paged_decode_attention_launch"] == (
+            counts["paged_decode_attention_launch"])
+        ops.reset_launch_counts()
+        assert set(ops.launch_counts().values()) == {0}
+        with pytest.raises(KeyError, match="no launcher"):
+            k.launch("paged_attention_launch")
+    finally:
+        k.launches = saved
 
 
 def test_kernel_entry_points_refuse_other_devices():

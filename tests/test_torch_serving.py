@@ -273,7 +273,10 @@ def test_page_allocator_matches_reference(num_pages, retain_limit, n_ops,
             both("release", h.pages, retain=(op == 4))
             if h.reserved:
                 both("cancel_reservation", h.reserved)
-        elif op == 5 and port.retained_pages:
+        elif op == 5 and port.retained_pages and port.available > 0:
+            # a revive within what the reservations leave, as in the
+            # engine: there the alloc after a revive fails when it dug
+            # into other requests' reservations, and the revive is undone
             page = list(port._retained)[int(rng.integers(
                 port.retained_pages))]
             both("revive", page)
