@@ -39,7 +39,24 @@ Phases, any failure exits non-zero:
       a yardstick the port never calls) and its bound: the larger of its
       bytes over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
       HBM3 and dense bf16 peaks); (d') the verify kernel at run A's and
-      run B's shapes and the ring fold at the draft's.
+      run B's shapes and the ring fold at the draft's;
+  (f) run the paper's VGG-B convolutions: all 10 conv layers at their
+      published shapes (3x3, padding 1, seeded f32 x and weights) at 2, 4
+      and 8 bits, and conv3_1 at 4 bits with bf16 x, through
+      ``ops.samd_conv2d``, each held against ``samd_conv2d_plain`` and
+      ``F.conv2d`` of the dequantized weight (``CONV_F32_TOL`` for f32,
+      ``BF16_TOL`` for bf16); then a 1D signal of 3,211,264 values
+      (conv1_2's input activations) with 3 taps through
+      ``ops.samd_conv1d`` for the plans (2, 3, 4 bits signed; 4 bits
+      unsigned), bit-identical to the plain chunks on the card and to a
+      direct integer convolution. Exactly the two conv launchers run
+      (31 and 4 launches), and (c) and (e) launch neither. Each layer is
+      timed beside its plain version, ``F.conv2d`` and its bound: the
+      larger of its bytes over 3.35 TB/s and its operations over the
+      card's peak for x's type: 67 TFLOP/s for f32 x (the H100 SXM f32
+      CUDA-core peak), 989 TFLOP/s for bf16 x (the dense bf16
+      tensor-core peak, on which a bf16 x times a small integer code is
+      exact; the kernel itself computes in f32 on CUDA cores).
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -49,6 +66,7 @@ no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -61,10 +79,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 # kernel vs plain on the card: both accumulate in f32 and round the output
 # to bf16 (8 significant bits), in different orders, so they may land one
 # or two bf16 rounding steps apart: rtol = atol = 1e-2 of the output scale
 BF16_TOL = 1e-2
+# f32 conv kernel vs plain and vs F.conv2d: the same f32 products summed in
+# another order (up to 4608 terms at conv5): max |kernel - reference| <=
+# 1e-4 x max |reference|
+CONV_F32_TOL = 1e-4
 # full model through the kernels vs through the plain versions on the CPU:
 # 24 bf16 layers of such differences: 5e-2 of the largest logit
 MODEL_TOL = 5e-2
@@ -74,7 +97,18 @@ MATMUL = "samd_matmul_launch"
 DECODE = "paged_decode_attention_launch"
 RING = "paged_decode_ring_attention_launch"
 VERIFY = "paged_verify_attention_launch"
+CONV2D = "samd_conv2d_launch"
+CHUNKS = "samd_conv_chunks_launch"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+CONV_SOURCE = "src/repro_torch/kernels/csrc/samd_conv.cu"
+CONV_BITS = (2, 4, 8)
+# (f)'s bf16 layer and the layer whose numbers stand in the kernels line
+CONV_BF16_CASE = ("conv3_1", 4)
+CONV_ENTRY_CASE = ("conv3_2", 4)
+# conv1_2's input activations (64 x 224 x 224) as one 1D signal, 3 taps
+CONV1D_N, CONV1D_TAPS = 64 * 224 * 224, 3
+CONV1D_PLANS = ((2, True), (3, True), (4, True), (4, False))
+CONV1D_ENTRY_PLAN = (4, True)
 # the speculative serving runs of (e): (run, KV format, K); (b') checks the
 # verify kernel at each run's S = K + 1 and the ring fold at its R = K
 SPEC_RUNS = (("A", "bf16", 4), ("B", "int8", 2))
@@ -109,9 +143,9 @@ class Timer:
         return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -127,6 +161,17 @@ def max_err(got, want, tol):
             f"mismatch: max err {err.max().item():.4g}, "
             f"scale {want.abs().max().item():.4g}")
     return err.max().item()
+
+
+def max_scaled_err(got, want, tol):
+    """Max |got - want|, raising unless it is at most tol * max|want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > tol * want.abs().max().item():
+        raise AssertionError(
+            f"mismatch: max err {err:.4g}, scale "
+            f"{want.abs().max().item():.4g}, tolerance {tol}")
+    return err
 
 
 # -- (b) kernels against their plain versions --------------------------------
@@ -655,8 +700,9 @@ def kv_bytes_per_token(cfg, packed):
     return 2 * (per_tok + 4 * cfg.n_kv_heads if packed else 2 * per_tok)
 
 
-def timing_row(label, kern, plain, lib, n_bytes, n_ops, **extra):
-    b_ms, by = bound_ms(n_bytes, n_ops)
+def timing_row(label, kern, plain, lib, n_bytes, n_ops,
+               ops_per_s=BF16_OPS_PER_S, **extra):
+    b_ms, by = bound_ms(n_bytes, n_ops, ops_per_s)
     row = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                bound_by=by, bytes=n_bytes, ops=n_ops, **extra)
     log(f"  {label} " + json.dumps(
@@ -802,6 +848,194 @@ def time_verify(eng, dev, timer, gen, label):
                       n_bytes, n_ops, keys=keys, s=s)
 
 
+# -- (f) the VGG-B convolutions ----------------------------------------------
+
+def vggb_cases():
+    """(layer, C_in, C_out, H, W, bits, dtype) of (f)'s samd_conv2d runs."""
+    from repro_torch.configs.vggb import VGGB_LAYERS
+
+    cases = [(*layer, bits, torch.float32) for layer in VGGB_LAYERS
+             for bits in CONV_BITS]
+    name, bits = CONV_BF16_CASE
+    layer = next(lay for lay in VGGB_LAYERS if lay[0] == name)
+    return cases + [(*layer, bits, torch.bfloat16)]
+
+
+def vggb_inputs(dev, gen, c_in, c_out, h, w, bits, dtype):
+    from repro_torch.quant.config import QuantConfig
+    from repro_torch.quant.packing import pack_conv_weights
+
+    cfg = QuantConfig(bits=bits)
+    x = torch.randn(c_in, h, w, generator=gen, device=dev).to(dtype)
+    packed, scale = pack_conv_weights(
+        torch.randn(3, 3, c_in, c_out, generator=gen, device=dev), cfg)
+    return x, packed, scale, cfg
+
+
+def library_conv2d(x, packed, scale, cfg):
+    """F.conv2d of x with the dequantized weight (the yardstick), its
+    output as [OH, OW, C_out]; returns (callable, output)."""
+    from repro_torch.quant.packing import dequant_conv_weights
+
+    wt = dequant_conv_weights(packed, scale, x.shape[0], cfg, x.dtype)
+    wt = wt.permute(3, 2, 0, 1).contiguous()
+    x4 = x[None]
+
+    def fn():
+        return torch.nn.functional.conv2d(x4, wt, padding=1)
+
+    return fn, fn()[0].permute(1, 2, 0)
+
+
+def conv1d_signal(dev, gen, bits, signed):
+    from repro_torch.core.conv import make_plan
+
+    lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed else (
+        0, (1 << bits) - 1)
+    x = torch.randint(lo, hi + 1, (CONV1D_N,), generator=gen, device=dev)
+    k = torch.randint(lo, hi + 1, (CONV1D_TAPS,), generator=gen, device=dev)
+    return x, k, make_plan(bits, CONV1D_TAPS, signed)
+
+
+def run_vggb(dev, gen, timer, card):
+    """Phase (f): the main path through both conv launchers, then every
+    result against its references, then the timings. Returns the two
+    kernels-line entries."""
+    from repro_torch.core.conv import (
+        overlap_add, pack_conv_kernel, pack_conv_operand,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_conv as sc
+
+    cases = vggb_cases()
+    inputs = [vggb_inputs(dev, gen, *c[1:]) for c in cases]
+    signals = [conv1d_signal(dev, gen, b, sg) for b, sg in CONV1D_PLANS]
+    ops.reset_launch_counts()
+    outs = [ops.samd_conv2d(*args) for args in inputs]
+    outs1d = [ops.samd_conv1d(*sig) for sig in signals]
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    want = {CONV2D: len(cases), CHUNKS: len(CONV1D_PLANS)}
+    if counts != {fn: want.get(fn, 0) for fn in counts}:
+        raise AssertionError(f"(f) launched {counts}, expected {want}")
+    log(f"  (f) launches: {json.dumps(counts)}")
+
+    errs = {}
+    for (name, c_in, c_out, h, w, bits, dtype), args, out in zip(
+            cases, inputs, outs):
+        if out.shape != (h, w, c_out) or out.dtype != dtype:
+            raise AssertionError(f"{name}: out {tuple(out.shape)} {out.dtype}")
+        plain = sc.samd_conv2d_plain(*args)
+        x, packed, scale, cfg = args
+        _, lib = library_conv2d(x.float(), packed, scale, cfg)
+        check = (functools.partial(max_scaled_err, tol=CONV_F32_TOL)
+                 if dtype == torch.float32
+                 else functools.partial(max_err, tol=BF16_TOL))
+        errs[name, bits, dtype] = (check(out, plain), check(out, lib),
+                                   plain.float().abs().max().item())
+    log("  samd_conv2d: " + json.dumps(
+        {f"{n} {b}-bit {str(d)[6:]}": [float(f"{v:.3g}") for v in e]
+         for (n, b, d), e in errs.items()})
+        + " (max |kernel - plain|, max |kernel - F.conv2d|, max |plain|)")
+
+    lane_err = 0
+    for (bits, signed), (x, k, plan), out in zip(CONV1D_PLANS, signals,
+                                                  outs1d):
+        n = x.shape[0]
+        direct = torch.zeros(n + CONV1D_TAPS - 1, dtype=torch.int64,
+                             device=dev)
+        for j in range(CONV1D_TAPS):
+            direct[j:j + n] += k[j] * x
+        xw, kw = pack_conv_operand(x, plan), pack_conv_kernel(k, plan)
+        lanes = sc.samd_conv_chunks_cuda(xw, kw, plan)
+        plain_lanes = sc.samd_conv_chunks_plain(xw, kw, plan)
+        plain = overlap_add(plain_lanes, plan, n + CONV1D_TAPS - 1)
+        lane_err = max(lane_err, (lanes - plain_lanes).abs().max().item())
+        if not (torch.equal(lanes, plain_lanes) and torch.equal(out, plain)
+                and torch.equal(out.long(), direct)):
+            raise AssertionError(f"samd_conv1d {bits}-bit signed={signed}: "
+                                 "not bit-identical")
+    log(f"  samd_conv1d: {len(CONV1D_PLANS)} plans on {CONV1D_N} values "
+        "bit-identical to the plain chunks and to a direct integer "
+        "convolution")
+
+    log(f"(f') conv kernel times (card: {card})")
+    rows = {}
+    for (name, c_in, c_out, h, w, bits, dtype), args, out in zip(
+            cases, inputs, outs):
+        x, packed, scale, cfg = args
+        kern = timer(lambda: ops.samd_conv2d(*args), iters=10)
+        plain = timer(lambda: sc.samd_conv2d_plain(*args), iters=3)
+        lib_fn, _ = library_conv2d(x, packed, scale, cfg)
+        lib = timer(lib_fn, iters=10)
+        n_bytes = ((x.numel() + out.numel()) * x.element_size()
+                   + packed.numel() * 4 + scale.numel() * 4)
+        n_ops = 2 * h * w * c_out * c_in * 9
+        # a bf16 x times a small integer code is exact on the bf16 tensor
+        # cores (f32 accumulation), so bf16 x is bound by their rate
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        rows[name, bits, dtype] = timing_row(
+            f"samd_conv2d {name} {bits}-bit {str(dtype)[6:]}", kern, plain,
+            lib, n_bytes, n_ops, peak, layer=name, bits=bits,
+            tflops=n_ops / kern / 1e9)
+    for b in CONV_BITS:
+        sel = [r for key, r in rows.items()
+               if key[1] == b and key[2] == torch.float32]
+        log(f"  VGG-B 10 layers {b}-bit f32: kernel "
+            f"{sum(r['ms'] for r in sel):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in sel):.4f}, F.conv2d "
+            f"{sum(r['library_ms'] for r in sel):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in sel):.4f}")
+
+    chunk_rows = {}
+    for (bits, signed), (x, k, plan) in zip(CONV1D_PLANS, signals):
+        xw, kw = pack_conv_operand(x, plan), pack_conv_kernel(k, plan)
+        kern = timer(lambda: sc.samd_conv_chunks_cuda(xw, kw, plan))
+        plain = timer(lambda: sc.samd_conv_chunks_plain(xw, kw, plan),
+                      iters=3)
+        whole = timer(lambda: ops.samd_conv1d(x, k, plan), iters=10)
+        xf = x.float()[None, None]
+        kf = k.flip(0).float()[None, None]
+        lib = timer(lambda: torch.nn.functional.conv1d(
+            xf, kf, padding=CONV1D_TAPS - 1))
+        n_bytes = xw.numel() * 4 + 4 + xw.numel() * plan.out_lanes_per_chunk * 4
+        chunk_rows[bits, signed] = timing_row(
+            f"samd_conv_chunks {bits}-bit signed={signed} "
+            f"(L={plan.fmt.lane_width}, {xw.numel()} words)", kern, plain,
+            lib, n_bytes, 0, samd_conv1d_ms=whole)
+
+    name, bits = CONV_ENTRY_CASE
+    _, c_in, c_out, h, w, _, _ = next(c for c in cases
+                                      if c[0] == name and c[5] == bits)
+    bits1d, signed1d = CONV1D_ENTRY_PLAN
+    return [
+        kernel_entry(
+            f"samd_conv2d (VGG-B {name}, {bits}-bit, f32)", CONV_SOURCE,
+            "src/repro/kernels/samd_conv.py:192", counts[CONV2D],
+            errs[name, bits, torch.float32][0],
+            rows[name, bits, torch.float32],
+            f"{name}: x [{c_in}, {h}, {w}] f32, 3x3, padding 1, {bits}-bit "
+            f"packed weights, C_out {c_out}; library: F.conv2d of the "
+            "dequantized weight (f32, no TF32)"),
+        kernel_entry(
+            f"samd_conv_chunks ({bits1d}-bit signed plan)", CONV_SOURCE,
+            "src/repro/kernels/samd_conv.py:105", counts[CHUNKS], lane_err,
+            chunk_rows[bits1d, signed1d],
+            f"{CONV1D_N} values, {CONV1D_TAPS} taps, per launch; library: "
+            "F.conv1d in f32 of the whole samd_conv1d"),
+    ]
+
+
+def kernel_entry(name, source, replaces, launches, err, t, shape):
+    """One launcher's object in the kernels line; ``t`` is its
+    ``timing_row``."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": shape}
+
+
 def nvidia_smi():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -874,13 +1108,6 @@ def main() -> int:
 
     log(f"(d) kernel times at the main path's shapes (card: {card})")
 
-    def entry(name, source, replaces, launches, err, t, shape):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "shape": shape}
-
     # one entry per launcher per serving run that launches it, with that
     # run's own launch count, timed on that run's own weights and pools
     kernels = []
@@ -892,7 +1119,7 @@ def main() -> int:
         params = eng._draft_params if eng.speculative else eng.params
         mm = time_samd_matmul(eng, dev, timer, params, label)
         mm["bound_by"] = bound_ms(mm["bytes"], mm["ops"])[1]
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"samd_matmul ({label})",
             "src/repro_torch/kernels/csrc/samd_matmul.cu",
             "src/repro/kernels/samd_matmul.py:123", counts[MATMUL],
@@ -902,7 +1129,7 @@ def main() -> int:
     for fmt in ("bf16", "int8"):
         eng, _, counts = runs[fmt]
         pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen)
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"paged_decode_attention ({fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:294", counts[DECODE],
             err_pa[fmt, 1], pa_t,
@@ -913,18 +1140,21 @@ def main() -> int:
         eng, _, counts = runs[key]
         assert eng.speculative == r and (eng._kv_bits == 8) == (fmt == "int8")
         t = time_ring_fold(eng, dev, timer, gen, f"run {key}, {fmt} KV")
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"paged_decode_ring_attention (run {key}, {fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:294", counts[RING],
             err_ring[fmt, r, 1], t, f"draft decode B=8 H=Hkv=16 dh=64 ps=16 "
             f"n_pp=32, pool to pos-1 + ring R={r}, per layer"))
         t = time_verify(eng, dev, timer, gen, f"run {key}, {fmt} KV")
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"paged_verify_attention (run {key}, {fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
             err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 dh=64 "
             "ps=16 n_pp=32, per layer"))
     time_samd_matmul_prefill(runs["bf16"][0], dev, timer)
+
+    log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
+    kernels += run_vggb(dev, gen, timer, card)
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,72 @@
+"""Lane-safety contracts of the two conv paths (counterpart of the conv
+checks in ``repro/analysis/contracts.py``).
+
+``kernels.ops.samd_conv2d`` and ``samd_conv1d`` run them before every
+call, as the reference's ``verify=True`` does: pure Python over the
+static configuration, cached, raising :class:`LaneSafetyError` before an
+unsafe configuration reaches a kernel.
+
+* The blocked ``samd_conv2d`` keeps lanes as storage only: codes are
+  unpacked before the f32 contraction, so its program is
+  ``Pack -> ReadValue`` at depth KH*KW*C_in. (The reference adds an f32
+  exactness bound for quantized activations; the port's ``QuantConfig``
+  has no ``act_bits``, so that bound never applies.)
+* Conv as multiplication (``samd_conv1d``) runs the whole pipeline in
+  the lanes: pack, sign-extend, ``taps`` products a lane, the borrow
+  fixup, a wide read.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+from repro_torch.analysis.lanes import (
+    BorrowFixup,
+    LaneSafetyError,
+    MulKernel,
+    Pack,
+    ReadValue,
+    ReadWide,
+    SignExtend,
+    Verdict,
+    interpret,
+)
+from repro_torch.core.conv import ConvPlan
+from repro_torch.core.samd import SAMDFormat
+from repro_torch.quant.config import QuantConfig
+
+
+def assert_safe(verdict: Verdict) -> Verdict:
+    """Raise :class:`LaneSafetyError` on any verdict that is not safe."""
+    if not verdict.ok:
+        raise LaneSafetyError(verdict)
+    return verdict
+
+
+@functools.lru_cache(maxsize=None)
+def check_conv2d_config(cfg: QuantConfig, kh: int, kw: int, c_in: int, *,
+                        signed: bool = True) -> Verdict:
+    """Verdict of the blocked ``samd_conv2d`` over a KH x KW x C_in
+    fan-in."""
+    fmt = SAMDFormat(cfg.bits, cfg.lane_width, signed=signed, word_bits=32)
+    k = int(kh) * int(kw) * int(c_in)
+    verdict = interpret(fmt, [Pack(), ReadValue()], depth=k)
+    if not verdict.ok:
+        return verdict
+    return dataclasses.replace(
+        verdict,
+        detail=("storage-only lanes (codes unpack to int32 before the f32 "
+                f"contraction); depth K={k} accumulates out of the packed "
+                "domain in float"))
+
+
+@functools.lru_cache(maxsize=None)
+def check_conv_plan(plan: ConvPlan) -> Verdict:
+    """Verdict of conv as multiplication under ``plan``: ``plan.taps``
+    products of b-bit values a lane, read wide after the borrow fixup."""
+    plan.validate()
+    signed = plan.fmt.signed
+    program = ([Pack()] + ([SignExtend()] if signed else [])
+               + [MulKernel(plan.taps)] + ([BorrowFixup()] if signed else [])
+               + [ReadWide()])
+    return interpret(plan.fmt, program, depth=plan.taps)

@@ -1,1 +1,1 @@
-"""Architecture configs (dense decoders)."""
+"""Architecture configs: dense decoders and the VGG-B conv layers."""

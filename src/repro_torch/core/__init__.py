@@ -1,1 +1,2 @@
-"""SAMD lane format: masks and 32-bit word pack/unpack."""
+"""SAMD lane format and arithmetic, conv-as-multiplication, the overflow
+analysis and the op generator."""

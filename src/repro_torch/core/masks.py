@@ -22,3 +22,13 @@ def build_mask(start: int, width: int, stride: int,
 def value_mask(value_bits: int, lane_width: int, word_bits: int = 32) -> int:
     """Low ``value_bits`` of each ``lane_width``-bit lane (value portion)."""
     return build_mask(0, value_bits, lane_width, word_bits)
+
+
+def even_lane_mask(w: int, word_bits: int = 32) -> int:
+    """All bits of every even-numbered ``w``-bit lane."""
+    return build_mask(0, w, 2 * w, word_bits)
+
+
+def odd_lane_mask(w: int, word_bits: int = 32) -> int:
+    """All bits of every odd-numbered ``w``-bit lane."""
+    return build_mask(w, w, 2 * w, word_bits)

@@ -9,12 +9,24 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    assert_safe,
+    check_conv2d_config,
+    check_conv_plan,
+)
+from repro_torch.core.conv import (
+    ConvPlan,
+    overlap_add,
+    pack_conv_kernel,
+    pack_conv_operand,
+)
 from repro_torch.kernels import _build
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import samd_conv as _conv
 from repro_torch.kernels import samd_matmul as _mm
 from repro_torch.quant.config import QuantConfig
 
-KERNELS = (_mm.KERNEL, _pa.KERNEL)
+KERNELS = (_mm.KERNEL, _pa.KERNEL, _conv.KERNEL)
 
 
 def build_kernels() -> None:
@@ -78,3 +90,35 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, q_pos, *,
           else _pa.paged_verify_attention_plain)
     return fn(q, k_pages, v_pages, page_table, q_pos,
               k_scale=k_scale, v_scale=v_scale)
+
+
+def samd_conv2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                cfg: QuantConfig, *, padding: int = 1,
+                signed: bool = True) -> torch.Tensor:
+    """Stride-1 2D conv over SAMD-packed weights: x [C_in, H, W] with
+    packed [KH, KW, ceil(C_in/vpw), C_out] and scale [1, C_out] (from
+    ``quant.packing.pack_conv_weights``) -> [OH, OW, C_out] in x's
+    dtype. The lane-safety check of (cfg, KH x KW x C_in, signed) runs
+    first and raises ``LaneSafetyError`` on an unsafe configuration."""
+    kh, kw = packed.shape[:2]
+    assert_safe(check_conv2d_config(cfg, int(kh), int(kw), int(x.shape[0]),
+                                    signed=bool(signed)))
+    fn = _conv.samd_conv2d_cuda if _on_cuda(x) else _conv.samd_conv2d_plain
+    return fn(x, packed, scale, cfg, padding=padding, signed=signed)
+
+
+def samd_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                plan: ConvPlan) -> torch.Tensor:
+    """Full 1D integer convolution by the conv-as-multiplication kernel:
+    x [n] int, kernel [taps] int -> [n + taps - 1] int32
+    (``np.convolve``). Packing and the overlap-add of the chunks' lanes
+    are plain PyTorch, as the reference runs them outside its kernel.
+    The plan's lane-safety check runs first and raises
+    ``LaneSafetyError`` on an unsafe plan."""
+    assert_safe(check_conv_plan(plan))
+    n = x.shape[-1]
+    xw = pack_conv_operand(x, plan)
+    kw = pack_conv_kernel(kernel, plan)
+    fn = (_conv.samd_conv_chunks_cuda if _on_cuda(x)
+          else _conv.samd_conv_chunks_plain)
+    return overlap_add(fn(xw, kw, plan), plan, n + plan.taps - 1)

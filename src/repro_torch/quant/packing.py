@@ -7,7 +7,8 @@ axis K,
     packed[ceil(K / vpw), N]  int32 (uint32 bits),   scale[1, N]  float32
 
 so the matmul kernel reads only packed bytes and unpacks lanes in
-registers.
+registers. Conv weights W[KH, KW, C_in, C_out] pack the same way along
+C_in, their innermost reduction axis (``pack_conv_weights``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,40 @@ def dequant_weights(packed: torch.Tensor, scale: torch.Tensor, k: int,
                     cfg: QuantConfig, dtype=torch.bfloat16) -> torch.Tensor:
     q = unpack_weights(packed, k, cfg)
     return (q.to(torch.float32) * scale).to(dtype)
+
+
+def pack_conv_weights(w: torch.Tensor, cfg: QuantConfig):
+    """Quantize + SAMD-pack a conv weight W[KH, KW, C_in, C_out].
+
+    One scale per output channel over its whole (KH, KW, C_in) fan-in, so
+    the conv kernel sums raw codes over every tap and channel and scales
+    once at the store. Lanes pack along C_in, lane 0 in the low bits.
+
+    Returns (packed int32 [KH, KW, ceil(C_in/vpw), C_out], scale f32
+    [1, C_out]).
+    """
+    kh, kw, c_in, c_out = w.shape
+    q, scale = quantize_symmetric(w.reshape(kh * kw * c_in, c_out),
+                                  cfg.bits, axis=0)
+    q = q.reshape(kh, kw, c_in, c_out)
+    words = samd.pack(q.movedim(2, -1), _fmt(cfg))   # [kh, kw, c_out, cw]
+    return words.movedim(-1, 2).contiguous(), scale
+
+
+def unpack_conv_weights(packed: torch.Tensor, c_in: int,
+                        cfg: QuantConfig) -> torch.Tensor:
+    """Inverse of ``pack_conv_weights`` (codes only): int32
+    [KH, KW, C_in, C_out]."""
+    vals = samd.unpack(packed.movedim(2, -1), _fmt(cfg), c_in)
+    return vals.movedim(-1, 2)
+
+
+def dequant_conv_weights(packed: torch.Tensor, scale: torch.Tensor,
+                         c_in: int, cfg: QuantConfig,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Dense [KH, KW, C_in, C_out] conv weight from the packed form."""
+    q = unpack_conv_weights(packed, c_in, cfg)
+    return (q.to(torch.float32) * scale.reshape(1, 1, 1, -1)).to(dtype)
 
 
 def pack_int8_lanes(vals: torch.Tensor) -> torch.Tensor:

@@ -11,16 +11,20 @@ where only the port is installed.
 Tolerance: kernel and plain version both accumulate in f32 and round the
 output to bf16 (8 significant bits) in different orders, so they may be
 a rounding step or two apart: rtol = atol = 2e-2 of the output scale.
-Packed codes read back through the matmul are compared exactly.
+Packed codes read back through the matmul are compared exactly. The conv
+kernel with f32 x sums the same f32 products as its plain version in
+another order: rtol = atol = 1e-4 of the output scale. The conv-chunks
+kernel is integer work and is compared bit for bit.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.archs import smoke_config  # noqa: E402
-from repro_torch.core import samd  # noqa: E402
+from repro_torch.core import conv, overflow, samd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import samd_conv as sc  # noqa: E402
 from repro_torch.kernels import samd_matmul as mm  # noqa: E402
 from repro_torch.models.model import forward, init_paged_cache  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
@@ -28,10 +32,12 @@ from repro_torch.models.model import build_template  # noqa: E402
 from repro_torch.models.spec import init_from_spec  # noqa: E402
 from repro_torch.quant.config import QuantConfig  # noqa: E402
 from repro_torch.quant.packing import (  # noqa: E402
-    pack_int8_lanes, pack_weights, unpack_weights,
+    pack_conv_weights, pack_int8_lanes, pack_weights, unpack_weights,
 )
 
 TOL = 2e-2
+CONV_F32_TOL = 1e-4
+CONV_LAUNCHERS = ("samd_conv2d_launch", "samd_conv_chunks_launch")
 
 
 @pytest.fixture
@@ -329,3 +335,115 @@ def test_forward_on_card_matches_plain_on_cpu(cuda, kv_bits):
         outs.append((pre.cpu()[pos >= 0], nxt.cpu()))
     for a, b in zip(*outs):
         _close(a, b, 5e-2)
+
+
+def _moved(before, after):
+    return {fn for fn in after if after[fn] != before[fn]}
+
+
+def test_cpu_conv_tensors_take_the_plain_version_and_launch_nothing():
+    gen = torch.Generator().manual_seed(0)
+    cfg = QuantConfig(bits=4)
+    packed, scale = pack_conv_weights(torch.randn(3, 3, 5, 4, generator=gen),
+                                      cfg)
+    x = torch.randn(5, 6, 7, generator=gen)
+    before = ops.launch_counts()
+    _close(ops.samd_conv2d(x, packed, scale, cfg),
+           sc.samd_conv2d_plain(x, packed, scale, cfg), 1e-6)
+    plan = conv.make_plan(2, 3, True)
+    xi = torch.randint(-2, 2, (50,), generator=gen)
+    ki = torch.randint(-2, 2, (3,), generator=gen)
+    assert torch.equal(ops.samd_conv1d(xi, ki, plan),
+                       conv.samd_conv_full(xi, ki, plan))
+    assert ops.launch_counts() == before
+
+
+def _conv_weights(dev, gen, bits, spacer, c_in, c_out, signed):
+    cfg = QuantConfig(bits=bits, spacer=spacer)
+    if signed:
+        return (*pack_conv_weights(
+            torch.randn(3, 3, c_in, c_out, generator=gen, device=dev), cfg),
+            cfg)
+    codes = torch.randint(0, 2 ** bits, (3, 3, c_out, c_in), generator=gen,
+                          device=dev)
+    fmt = samd.SAMDFormat(bits, cfg.lane_width, signed=False)
+    packed = samd.pack(codes, fmt).movedim(-1, 2).contiguous()
+    scale = torch.rand(1, c_out, generator=gen, device=dev) + 0.5
+    return packed, scale, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("bits,spacer", [(2, "temporary"), (4, "temporary"),
+                                         (4, "permanent"), (8, "temporary")])
+@pytest.mark.parametrize("c_in,c_out,h,w,padding", [(3, 64, 20, 37, 1),
+                                                    (37, 70, 9, 33, 1),
+                                                    (19, 8, 5, 6, 0)])
+def test_samd_conv2d_kernel_matches_plain(cuda, c_in, c_out, h, w, padding,
+                                          bits, spacer, signed, dtype):
+    """conv1_1's C_in = 3 (13 empty lanes of a 2-bit word), ragged C_in,
+    C_out and OW against the kernel's 64 x 32 tiles, padding 0 and 1,
+    signed and unsigned lanes, f32 and bf16 x."""
+    gen = torch.Generator(device=cuda).manual_seed(c_in + bits + signed)
+    packed, scale, cfg = _conv_weights(cuda, gen, bits, spacer, c_in, c_out,
+                                       signed)
+    x = torch.randn(c_in, h, w, generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()
+    got = ops.samd_conv2d(x, packed, scale, cfg, padding=padding,
+                          signed=signed)
+    assert _moved(before, ops.launch_counts()) == {"samd_conv2d_launch"}
+    want = sc.samd_conv2d_plain(x, packed, scale, cfg, padding=padding,
+                                signed=signed)
+    assert got.dtype == dtype and got.shape == want.shape
+    _close(got, want, CONV_F32_TOL if dtype == torch.float32 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,signed", [(2, True), (3, True), (4, True),
+                                         (4, False)])
+def test_samd_conv1d_kernel_is_bit_exact(cuda, bits, signed):
+    """The four plans of the conv slice: the chunk lanes equal the plain
+    version's bit for bit (edge words included: top bit set, all ones),
+    and samd_conv1d equals a direct integer convolution."""
+    gen = torch.Generator(device=cuda).manual_seed(bits + signed)
+    plan = conv.make_plan(bits, 3, signed)
+    lo, hi = overflow.input_range(bits, signed)
+    x = torch.randint(lo, hi + 1, (100_003,), generator=gen, device=cuda)
+    k = torch.randint(lo, hi + 1, (3,), generator=gen, device=cuda)
+    before = ops.launch_counts()
+    got = ops.samd_conv1d(x, k, plan)
+    assert _moved(before, ops.launch_counts()) == {"samd_conv_chunks_launch"}
+    want = torch.nn.functional.conv1d(
+        x.double()[None, None], k.flip(0).double()[None, None],
+        padding=2)[0, 0]
+    assert torch.equal(got.cpu(), want.round().int().cpu())
+    edge = torch.tensor([0, 1, -1, -2 ** 31, 2 ** 31 - 1, -0x55555556,
+                         0x55555555, -65536, 65535, -0x77777778],
+                        dtype=torch.int32)
+    words = torch.cat([edge.repeat_interleave(10),
+                       torch.randint(-2 ** 31, 2 ** 31 - 1, (4096,),
+                                     dtype=torch.int32)])
+    for kw in edge:
+        kw = kw.reshape(1)
+        assert torch.equal(
+            sc.samd_conv_chunks_cuda(words.to(cuda), kw.to(cuda), plan).cpu(),
+            sc.samd_conv_chunks_plain(words, kw, plan))
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_what_they_do_not_take(cuda):
+    cfg = QuantConfig(bits=4)
+    packed, scale = pack_conv_weights(torch.randn(3, 3, 8, 4, device=cuda),
+                                      cfg)
+    with pytest.raises(TypeError):
+        ops.samd_conv2d(torch.randn(8, 5, 5, device=cuda).half(), packed,
+                        scale, cfg)
+    with pytest.raises(ValueError):
+        ops.samd_conv2d(torch.randn(8, 5, 5, device=cuda), packed,
+                        scale[:, :2], cfg)
+    plan = conv.make_plan(2, 3, True)
+    with pytest.raises(TypeError):
+        sc.samd_conv_chunks_cuda(torch.zeros(8, device=cuda),
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device=cuda), plan)

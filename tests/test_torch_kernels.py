@@ -299,7 +299,8 @@ def test_launch_counts_are_per_launcher():
     assert set(counts) == {
         "samd_matmul_launch", "paged_decode_attention_launch",
         "paged_decode_ring_attention_launch",
-        "paged_verify_attention_launch"}
+        "paged_verify_attention_launch", "samd_conv2d_launch",
+        "samd_conv_chunks_launch"}
     k = pa.KERNEL
     saved = dict(k.launches)
     try:
