@@ -2,13 +2,17 @@
 """Run the PyTorch/CUDA port end to end on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --old-matmul OLD/samd_matmul.cu   # + old vs new
 
 Phases, any failure exits non-zero:
   (a) build every CUDA kernel of ``src/repro_torch/kernels/csrc`` with nvcc
       for sm_90a, one process per source, all at once;
   (b) hold each kernel launcher against its plain PyTorch version on the
-      card at the serving path's shapes (stated tolerances below), check
-      that the matmul kernel unpacks the packed codes exactly, and (b')
+      card at the serving path's shapes (stated tolerances below); the
+      matmul at M = 8, 24, 32 (its split-K launcher) and 33, 1024 (its
+      tile launcher), each case launching exactly the launcher of
+      ``launcher_for(M)`` and bit-identical on a second call, and reading
+      the packed codes exactly through both launchers; and (b')
       that the speculative verify kernel and the decode kernel's draft
       ring fold agree with theirs at each run of (e)'s own S = K + 1 and
       R = K (and at S = 2, 5 and R = 4, G = 1 and 4), rows at -1 and
@@ -17,16 +21,18 @@ Phases, any failure exits non-zero:
       4-bit SAMD weights through the kernel route) with ``ServingEngine``:
       16 greedy requests, prompts of 32-256 tokens, 32 new tokens each,
       once with bf16 KV and once with packed int8 KV; every request must
-      finish untruncated, the path's launchers (matmul, decode attention)
-      must have launched and no other, and the model's logits on a small
+      finish untruncated, the path's launchers (the matmul's split-K for
+      decode and tile for prefill, decode attention) must have launched
+      and no other, and the model's logits on a small
       input must agree with the same model run through the kernels' plain
       versions on the CPU;
   (e) serve the same workload speculatively: run A, a bf16 target with an
       8-bit SAMD draft, ``speculative=4``, bf16 KV; run B, the 4-bit
       packed-int8-KV target of (c) as its own draft, ``speculative=2``.
-      Each must finish every request untruncated, launch the matmul, the
-      ring-fold decode and the verify launchers (and not the plain decode
-      one), and give plain greedy decode's tokens (run A against a plain
+      Each must finish every request untruncated, launch the matmul's
+      split-K launcher (and its tile launcher where the run's prefill
+      runs packed weights: run B), the ring-fold decode and the verify
+      launchers (and not the plain decode one), and give plain greedy decode's tokens (run A against a plain
       run of its bf16 target, run B against (c)'s int8-KV run), or part
       from them only at a token where a full forward of the prefix on the
       card has a top-1/top-2 margin under ``MODEL_TOL`` of its largest
@@ -38,8 +44,16 @@ Phases, any failure exits non-zero:
       the one PyTorch call that computes the same function (``library_ms``,
       a yardstick the port never calls) and its bound: the larger of its
       bytes over 3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM
-      HBM3 and dense bf16 peaks); (d') the verify kernel at run A's and
-      run B's shapes and the ring fold at the draft's;
+      HBM3 and dense bf16 peaks). The matmul is timed at decode (M = 8,
+      each run's weights), run B's verify (M = 24) and a prefill
+      (M = 1024) as device time: the 24 layers' launches captured in a
+      CUDA graph and replayed under CUDA events, for the kernel and for
+      dense bf16 ``torch.matmul`` alike (``ms``, ``library_ms``), beside
+      the host-paced times and the wrapper's host time per call; with
+      ``--old-matmul SOURCE`` also a previous ``samd_matmul.cu``, in
+      turns (old, new, new, old) on the same weights; (d') the verify
+      kernel at run A's and run B's shapes and the ring fold at the
+      draft's;
   (f) run the paper's VGG-B convolutions: all 10 conv layers at their
       published shapes (3x3, padding 1, seeded f32 x and weights) at 2, 4
       and 8 bits, and conv3_1 at 4 bits with bf16 x, through
@@ -93,7 +107,9 @@ CONV_F32_TOL = 1e-4
 MODEL_TOL = 5e-2
 SERVE = dict(max_batch=8, max_len=512, page_size=16)
 N_REQUESTS, MAX_TOKENS = 16, 32
-MATMUL = "samd_matmul_launch"
+SPLITK = "samd_matmul_splitk_launch"
+TILE = "samd_matmul_tile_launch"
+MM_SOURCE = "src/repro_torch/kernels/csrc/samd_matmul.cu"
 DECODE = "paged_decode_attention_launch"
 RING = "paged_decode_ring_attention_launch"
 VERIFY = "paged_verify_attention_launch"
@@ -113,6 +129,9 @@ CONV1D_ENTRY_PLAN = (4, True)
 # verify kernel at each run's S = K + 1 and the ring fold at its R = K
 SPEC_RUNS = (("A", "bf16", 4), ("B", "int8", 2))
 MATMUL_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]
+# (b)'s rows of x: decode, run B's verify (8 x 3), both sides of the
+# split-K / tile switch (32), and a prefill
+MATMUL_CHECK_M = (8, 24, 32, 33, 1024)
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -178,7 +197,10 @@ def max_scaled_err(got, want, tol):
 
 def check_samd_matmul(dev, gen):
     """Returns the max |kernel - plain| of each case group, keyed by
-    (bits, spacer, signed, M), over the three weight shapes."""
+    (bits, spacer, signed, M), over the three weight shapes. M = 8 and 24
+    (decode, run B's verify) and 32 run the split-K launcher, 33 and 1024
+    the tile launcher; each case must launch exactly ``launcher_for(M)``
+    and give bit-identical output on a second call."""
     from repro_torch.core import samd
     from repro_torch.kernels import samd_matmul as mm
     from repro_torch.kernels import ops
@@ -201,31 +223,48 @@ def check_samd_matmul(dev, gen):
                         packed = samd.pack(codes, fmt).t().contiguous()
                         scale = torch.rand(1, nn, generator=gen,
                                            device=dev) * 0.1
-                    for m in (8, 1024):
+                    for m in MATMUL_CHECK_M:
                         x = torch.randn(m, k, generator=gen, device=dev)
                         x = x.to(torch.bfloat16)
+                        before = ops.launch_counts()
                         got = ops.samd_matmul(x, packed, scale, k, cfg,
                                               signed=signed)
+                        moved = {f for f, c in ops.launch_counts().items()
+                                 if c != before[f]}
+                        if moved != {mm.launcher_for(m)}:
+                            raise AssertionError(f"M={m} launched {moved}")
+                        again = ops.samd_matmul(x, packed, scale, k, cfg,
+                                                signed=signed)
+                        if not torch.equal(got, again):
+                            raise AssertionError(
+                                f"two calls differ at M={m} K={k} N={nn}")
                         want = mm.samd_matmul_plain(x, packed, scale, k,
                                                     cfg, signed=signed)
                         key = (bits, spacer, signed, m)
                         errs[key] = max(errs.get(key, 0.0),
                                         max_err(got, want, BF16_TOL))
                         n += 1
-            # exact unpack: one-hot rows and unit scales read codes back
+            # exact unpack through both launchers: one-hot rows and unit
+            # scales read codes back
             k = 1024
             packed, _ = pack_weights(
                 torch.randn(k, 64, generator=gen, device=dev), cfg)
-            rows = torch.randint(0, k, (8,), generator=gen, device=dev)
-            x = torch.zeros(8, k, dtype=torch.bfloat16, device=dev)
-            x[torch.arange(8, device=dev), rows] = 1
-            got = ops.samd_matmul(x, packed, torch.ones(64, device=dev), k,
-                                  cfg)
-            codes = unpack_weights(packed, k, cfg)[rows]
-            if not torch.equal(got.float(), codes.float()):
-                raise AssertionError(f"codes not exact at {bits}/{spacer}")
-    log(f"  samd_matmul: {n} cases within tolerance, codes exact; "
-        f"max |kernel - plain| = {max(errs.values()):.4g}")
+            for m in (8, 1024):
+                rows = torch.randperm(k, generator=gen, device=dev)[:m]
+                x = torch.zeros(m, k, dtype=torch.bfloat16, device=dev)
+                x[torch.arange(m, device=dev), rows] = 1
+                got = ops.samd_matmul(x, packed, torch.ones(64, device=dev),
+                                      k, cfg)
+                codes = unpack_weights(packed, k, cfg)[rows]
+                if not torch.equal(got.float(), codes.float()):
+                    raise AssertionError(
+                        f"codes not exact at {bits}/{spacer}, M={m}")
+    log(f"  samd_matmul: {n} cases within tolerance, each launching "
+        "launcher_for(M) and bit-identical on a second call, codes exact "
+        f"through both launchers; max |kernel - plain| = "
+        f"{max(errs.values()):.4g}; per M: " + json.dumps(
+            {m: max(e for key, e in errs.items() if key[3] == m)
+             for m in MATMUL_CHECK_M}))
     return errs
 
 
@@ -591,17 +630,87 @@ def check_model_against_plain(eng, dev):
 
 # -- (d) timing at decode shapes ---------------------------------------------
 
-def time_samd_matmul(eng, dev, timer, params, label):
-    """Per-launch times over the 24 layers' weights (``params``, packed)
-    of each decode linear (M = max_batch), so the weights come from HBM
-    as in a decode tick."""
+def graph_ms(fn, reps=20):
+    """Device milliseconds of one call of ``fn``: captured once into a
+    CUDA graph and replayed ``reps`` times back to back under CUDA events,
+    so no host dispatch (wrapper, Python) sits between its launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture stream, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class OldMatmul:
+    """The previous ``samd_matmul`` kernel (a ``samd_matmul.cu`` with one
+    ``samd_matmul_launch(x, packed, scale, out, M, N, K, bits,
+    lane_width, vpw, signed, stream)``, e.g. from a git archive of the
+    parent commit), built with the port's nvcc flags and called through
+    ctypes, for a comparison on one card."""
+
+    def __init__(self, source):
+        import ctypes
+        import hashlib
+
+        from repro_torch.kernels import _build
+
+        src = Path(source).resolve()
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        lib = _build.BUILD_DIR / f"libold_samd_matmul-{digest}.so"
+        if not lib.exists():
+            _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                            str(lib), str(src)], check=True,
+                           capture_output=True, text=True, timeout=600)
+        self.fn = ctypes.CDLL(str(lib)).samd_matmul_launch
+        self.fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                            + [ctypes.c_void_p])
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, x, packed, scale, k, cfg):
+        from repro_torch.kernels._build import ptr, stream_handle
+
+        m, n = x.shape[0], packed.shape[1]
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        err = self.fn(ptr(x), ptr(packed), ptr(scale), ptr(out), m, n, k,
+                      cfg.bits, cfg.lane_width, cfg.values_per_word, 1,
+                      stream_handle(x))
+        if err:
+            raise RuntimeError(f"old samd_matmul launch failed ({err})")
+        return out
+
+
+def time_samd_matmul(dev, timer, params, label, m, old=None):
+    """Per-launch times at M = ``m`` rows over the 24 layers' weights
+    (``params``, packed) of each linear, so the weights come from HBM as
+    in a tick. Device time (the 24 launches in a CUDA graph, replayed) of
+    the kernel, of the previous kernel when ``old`` is given (in turns
+    old, new, new, old) and of dense bf16 ``torch.matmul`` (the
+    yardstick); host-paced time (the Timer, which also pays each call's
+    host dispatch) of the kernel and the yardstick; the plain version;
+    and the wrapper's host time per call (1000 calls, no sync). Returns
+    the means over the 7 linears."""
     from repro_torch.kernels import samd_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.quant.packing import dequant_weights
 
-    m = eng.max_batch
-    rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                         bytes=0.0, ops=0.0)
+    keys = ("ms", "old_ms", "library_ms", "host_paced_ms",
+            "library_host_paced_ms", "plain_ms", "bound_ms", "bytes", "ops")
+    tot = dict.fromkeys(keys, 0.0)
+    rows = []
     for part, name in DECODE_LINEARS:
         ws = [blk[part][name] for blk in params["blocks"]]
         k, nn = ws[0].orig_shape
@@ -613,47 +722,65 @@ def time_samd_matmul(eng, dev, timer, params, label):
         def run(fn):
             return lambda: [fn(w) for w in ws]
 
-        kern = timer(run(lambda w: ops.samd_matmul(x, w.packed, w.scale, k,
-                                                   cfg))) / nl
-        plain = timer(run(lambda w: mm.samd_matmul_plain(
-            x, w.packed, w.scale, k, cfg)), iters=3) / nl
-        lib = timer(lambda: [torch.matmul(x, d) for d in dense]) / nl
-        n_bytes = (x.numel() * 2 + ws[0].packed.numel() * 4
-                   + ws[0].scale.numel() * 4 + m * nn * 2)
-        n_ops = 2 * m * k * nn
-        b_ms, by = bound_ms(n_bytes, n_ops)
-        rows.append(dict(linear=name, m=m, k=k, n=nn, ms=kern,
-                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=by))
-        for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", b_ms), ("bytes", n_bytes),
-                       ("ops", n_ops)):
-            tot[key] += v
+        new = run(lambda w: ops.samd_matmul(x, w.packed, w.scale, k, cfg))
+        t = dict(ms=[], old_ms=[])
+        if old is not None:
+            w0 = ws[0]
+            max_err(old(x, w0.packed, w0.scale, k, cfg),
+                    mm.samd_matmul_plain(x, w0.packed, w0.scale, k, cfg),
+                    BF16_TOL)
+            prev = run(lambda w: old(x, w.packed, w.scale, k, cfg))
+            for who, fn in (("old_ms", prev), ("ms", new), ("ms", new),
+                            ("old_ms", prev)):
+                t[who].append(graph_ms(fn) / nl)
+        else:
+            t["ms"].append(graph_ms(new) / nl)
+
+        def lib():
+            return [torch.matmul(x, d) for d in dense]
+
+        row = dict(
+            linear=name, m=m, k=k, n=nn, launcher=mm.launcher_for(m),
+            splits=mm.split_k(m, nn, k, cfg.values_per_word)[0],
+            ms=float(np.mean(t["ms"])),
+            old_ms=float(np.mean(t["old_ms"])) if t["old_ms"] else 0.0,
+            library_ms=graph_ms(lib) / nl,
+            host_paced_ms=timer(new) / nl,
+            library_host_paced_ms=timer(lib) / nl,
+            plain_ms=timer(run(lambda w: mm.samd_matmul_plain(
+                x, w.packed, w.scale, k, cfg)), iters=3) / nl)
+        row["bytes"] = (x.numel() * 2 + ws[0].packed.numel() * 4
+                        + ws[0].scale.numel() * 4 + m * nn * 2)
+        row["ops"] = 2 * m * k * nn
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"])
+        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        if name == DECODE_LINEARS[0][1]:
+            w0 = ws[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                ops.samd_matmul(x, w0.packed, w0.scale, k, cfg)
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            row["host_us_per_call"] = host
+        rows.append(row)
+        for key in keys:
+            tot[key] += row[key]
         del dense
     for r in rows:
-        log(f"  samd_matmul decode ({label}) " + json.dumps(
-            {k: (round(v, 5) if isinstance(v, float) else v)
+        log(f"  samd_matmul ({label}) " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
              for k, v in r.items()}))
     n = len(rows)
-    return {k: v / n for k, v in tot.items()}
-
-
-def time_samd_matmul_prefill(eng, dev, timer):
-    """The same linears at a prefill shape (M = 1024 rows), layer 0."""
-    from repro_torch.kernels import ops
-
-    for part, name in DECODE_LINEARS:
-        w = eng.params["blocks"][0][part][name]
-        k, nn = w.orig_shape
-        x = torch.randn(1024, k, device=dev).to(torch.bfloat16)
-        ms = timer(lambda: ops.samd_matmul(x, w.packed, w.scale, k, w.cfg),
-                   iters=10)
-        dense = torch.randn(k, nn, device=dev).to(torch.bfloat16)
-        lib = timer(lambda: torch.matmul(x, dense), iters=10)
-        tflops = 2 * 1024 * k * nn / ms / 1e9
-        log(f"  samd_matmul prefill M=1024 {name} {k}x{nn}: {ms:.4f} ms "
-            f"({tflops:.2f} TFLOP/s); dense bf16 torch.matmul "
-            f"{lib:.4f} ms")
+    out = {k: v / n for k, v in tot.items()}
+    out["bound_by"] = bound_ms(out["bytes"], out["ops"])[1]
+    out["host_us_per_call"] = rows[0]["host_us_per_call"]
+    if old is None:
+        del out["old_ms"]
+    log(f"  samd_matmul ({label}) mean of the 7 linears: " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in out.items()}))
+    return out
 
 
 def fill_pools(eng, args, kw):
@@ -1029,11 +1156,30 @@ def run_vggb(dev, gen, timer, card):
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": shape}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"], "shape": shape}
+    for key in ("old_ms", "host_paced_ms", "library_host_paced_ms",
+                "host_us_per_call"):
+        if key in t:
+            entry[key] = t[key]
+    return entry
+
+
+def kernel_name(mangled):
+    """A compiled kernel's name for the build log: demangled and cut to
+    its template arguments (the matmul's are <vpw, warps, n16 tiles a
+    warp, m8 tiles, stages>) where ``c++filt`` is installed."""
+    import shutil
+
+    if not shutil.which("c++filt"):
+        return mangled
+    name = subprocess.run(["c++filt", mangled], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip()
 
 
 def nvidia_smi():
@@ -1045,6 +1191,14 @@ def nvidia_smi():
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-matmul", metavar="SOURCE",
+                    help="a previous samd_matmul.cu (e.g. from a git "
+                    "archive of the parent commit) to time in turns with "
+                    "the kernel in (d)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1070,9 +1224,12 @@ def main() -> int:
     log(f"  built {[k.name for k in ops.KERNELS]} in "
         f"{time.perf_counter() - t0:.1f} s")
     for k in ops.KERNELS:
+        fn = ""
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  {k.name} {fn}: {line.strip()}")
 
     log("(b) kernels against their plain versions")
     err_mm = check_samd_matmul(dev, gen)
@@ -1084,7 +1241,7 @@ def main() -> int:
     runs = {}
     for kv_bits, fmt in ((None, "bf16"), (8, "int8")):
         eng, summary, counts = serve(
-            f"4-bit, {fmt} KV", dev, {MATMUL, DECODE},
+            f"4-bit, {fmt} KV", dev, {SPLITK, TILE, DECODE},
             quant=QuantConfig(bits=4, kv_bits=kv_bits))
         check_model_against_plain(eng, dev)
         runs[fmt] = (eng, summary, counts)
@@ -1095,21 +1252,23 @@ def main() -> int:
     plain = plain.finished
     eng_a, sum_a, counts_a = serve(
         f"run A: bf16 target, 8-bit draft, K={spec_k['A']}, bf16 KV", dev,
-        {MATMUL, RING, VERIFY}, speculative=spec_k["A"],
+        {SPLITK, RING, VERIFY}, speculative=spec_k["A"],
         draft_quant=QuantConfig(bits=8))
     check_greedy(eng_a, plain, dev)
     eng_b, sum_b, counts_b = serve(
         f"run B: 4-bit target as its own draft, K={spec_k['B']}, int8 KV",
-        dev, {MATMUL, RING, VERIFY}, speculative=spec_k["B"],
+        dev, {SPLITK, TILE, RING, VERIFY}, speculative=spec_k["B"],
         quant=QuantConfig(bits=4, kv_bits=8))
     check_greedy(eng_b, runs["int8"][0].finished, dev)
     runs["A"] = (eng_a, sum_a, counts_a)
     runs["B"] = (eng_b, sum_b, counts_b)
 
     log(f"(d) kernel times at the main path's shapes (card: {card})")
+    old = OldMatmul(args.old_matmul) if args.old_matmul else None
 
     # one entry per launcher per serving run that launches it, with that
-    # run's own launch count, timed on that run's own weights and pools
+    # run's own launch count, timed on that run's own weights and pools;
+    # the matmul's times are device times (CUDA graph), its yardstick's too
     kernels = []
     for key, label, bits in (("bf16", "bf16 KV run", 4),
                              ("int8", "int8 KV run", 4),
@@ -1117,15 +1276,37 @@ def main() -> int:
                              ("B", "run B draft", 4)):
         eng, _, counts = runs[key]
         params = eng._draft_params if eng.speculative else eng.params
-        mm = time_samd_matmul(eng, dev, timer, params, label)
-        mm["bound_by"] = bound_ms(mm["bytes"], mm["ops"])[1]
+        m = eng.max_batch
+        mm_t = time_samd_matmul(dev, timer, params, f"{label}, M={m}", m,
+                                old)
         kernels.append(kernel_entry(
-            f"samd_matmul ({label})",
-            "src/repro_torch/kernels/csrc/samd_matmul.cu",
-            "src/repro/kernels/samd_matmul.py:123", counts[MATMUL],
-            err_mm[bits, "temporary", True, 8], mm,
-            "decode M=8, mean per launch over "
-            f"wq,wk,wv,wo,wg,wu,wd of 24 layers, {bits}-bit"))
+            f"samd_matmul split-K ({label}, M={m})", MM_SOURCE,
+            "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
+            err_mm[bits, "temporary", True, m], mm_t,
+            f"decode M={m}, mean per launch over wq,wk,wv,wo,wg,wu,wd of 24 "
+            f"layers, {bits}-bit; ms and library_ms are device times"))
+    # run B's verify: its 4-bit target's linears at 8 slots x (K + 1) rows
+    eng_b, _, counts_b = runs["B"]
+    m = eng_b.max_batch * (spec_k["B"] + 1)
+    mm_t = time_samd_matmul(dev, timer, eng_b.params, f"run B verify, M={m}",
+                            m, old)
+    kernels.append(kernel_entry(
+        f"samd_matmul split-K (run B verify, M={m})", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts_b[SPLITK],
+        err_mm[4, "temporary", True, m], mm_t,
+        f"verify M={m}, 4-bit, mean over the 7 linears of 24 layers; "
+        "launches: run B's split-K total (draft and verify)"))
+    # prefill: (c)'s 4-bit weights (the same seed as run B's target)
+    mm_t = time_samd_matmul(dev, timer, runs["bf16"][0].params,
+                            "prefill, M=1024", 1024, old)
+    for key, label in (("bf16", "bf16 KV run"), ("int8", "int8 KV run"),
+                       ("B", "run B")):
+        kernels.append(kernel_entry(
+            f"samd_matmul tile ({label} prefill)", MM_SOURCE,
+            "src/repro/kernels/samd_matmul.py:123", runs[key][2][TILE],
+            err_mm[4, "temporary", True, 1024], mm_t,
+            "M=1024, 4-bit, mean over the 7 linears of 24 layers (the "
+            "run's prefills are 8 x its prompt bucket rows)"))
     for fmt in ("bf16", "int8"):
         eng, _, counts = runs[fmt]
         pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen)
@@ -1151,7 +1332,6 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
             err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 dh=64 "
             "ps=16 n_pp=32, per layer"))
-    time_samd_matmul_prefill(runs["bf16"][0], dev, timer)
 
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
     kernels += run_vggb(dev, gen, timer, card)

@@ -1,16 +1,17 @@
-"""Lane-safety contracts of the two conv paths (counterpart of the conv
-checks in ``repro/analysis/contracts.py``).
+"""Lane-safety contracts of the matmul and the two conv paths (counterpart
+of the checks in ``repro/analysis/contracts.py``).
 
-``kernels.ops.samd_conv2d`` and ``samd_conv1d`` run them before every
-call, as the reference's ``verify=True`` does: pure Python over the
-static configuration, cached, raising :class:`LaneSafetyError` before an
-unsafe configuration reaches a kernel.
+``kernels.ops.samd_matmul``, ``samd_conv2d`` and ``samd_conv1d`` run them
+before every call, as the reference's ``verify=True`` does: pure Python
+over the static configuration, cached, raising :class:`LaneSafetyError`
+before an unsafe configuration reaches a kernel.
 
-* The blocked ``samd_conv2d`` keeps lanes as storage only: codes are
-  unpacked before the f32 contraction, so its program is
-  ``Pack -> ReadValue`` at depth KH*KW*C_in. (The reference adds an f32
-  exactness bound for quantized activations; the port's ``QuantConfig``
-  has no ``act_bits``, so that bound never applies.)
+* ``samd_matmul`` and the blocked ``samd_conv2d`` keep lanes as storage
+  only: codes are unpacked before the f32 contraction, so their program
+  is ``Pack -> ReadValue`` at depth K (KH*KW*C_in for the conv). (The
+  reference adds an f32 exactness bound for quantized activations; the
+  port's ``QuantConfig`` has no ``act_bits``, so that bound never
+  applies.)
 * Conv as multiplication (``samd_conv1d``) runs the whole pipeline in
   the lanes: pack, sign-extend, ``taps`` products a lane, the borrow
   fixup, a wide read.
@@ -44,12 +45,11 @@ def assert_safe(verdict: Verdict) -> Verdict:
 
 
 @functools.lru_cache(maxsize=None)
-def check_conv2d_config(cfg: QuantConfig, kh: int, kw: int, c_in: int, *,
+def check_matmul_config(cfg: QuantConfig, k: int, *,
                         signed: bool = True) -> Verdict:
-    """Verdict of the blocked ``samd_conv2d`` over a KH x KW x C_in
-    fan-in."""
+    """Verdict of ``samd_matmul`` at reduction depth ``k``."""
     fmt = SAMDFormat(cfg.bits, cfg.lane_width, signed=signed, word_bits=32)
-    k = int(kh) * int(kw) * int(c_in)
+    k = int(k)
     verdict = interpret(fmt, [Pack(), ReadValue()], depth=k)
     if not verdict.ok:
         return verdict
@@ -58,6 +58,14 @@ def check_conv2d_config(cfg: QuantConfig, kh: int, kw: int, c_in: int, *,
         detail=("storage-only lanes (codes unpack to int32 before the f32 "
                 f"contraction); depth K={k} accumulates out of the packed "
                 "domain in float"))
+
+
+def check_conv2d_config(cfg: QuantConfig, kh: int, kw: int, c_in: int, *,
+                        signed: bool = True) -> Verdict:
+    """Verdict of the blocked ``samd_conv2d``: ``samd_matmul``'s at the
+    depth of the KH x KW x C_in fan-in."""
+    return check_matmul_config(cfg, int(kh) * int(kw) * int(c_in),
+                               signed=bool(signed))
 
 
 @functools.lru_cache(maxsize=None)

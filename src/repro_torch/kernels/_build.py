@@ -59,6 +59,7 @@ class Kernel:
         self.launches = dict.fromkeys(functions, 0)
         self.build_log = ""
         self._lib = None
+        self._fns = {}
 
     @property
     def library(self) -> Path:
@@ -104,12 +105,14 @@ class Kernel:
 
     def launch(self, fn: str, *args) -> None:
         """Call launcher ``fn``; raise on a CUDA error, else count it."""
-        if fn not in self.launches:
-            raise KeyError(f"{self.name} exports no launcher {fn!r}")
-        lib = self.lib()
-        err = getattr(lib, fn)(*args)
+        call = self._fns.get(fn)
+        if call is None:
+            if fn not in self.launches:
+                raise KeyError(f"{self.name} exports no launcher {fn!r}")
+            call = self._fns[fn] = getattr(self.lib(), fn)
+        err = call(*args)
         if err != 0:
-            msg = lib.repro_cuda_error_string(err).decode()
+            msg = self.lib().repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({err})")
         self.launches[fn] += 1
 
@@ -121,9 +124,10 @@ def build_all(kernels) -> None:
         k.finish_build(proc, tmp)
 
 
-def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, for a launcher."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, for a launcher (the raw
+    handle, without building a ``torch.cuda.Stream`` on every call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t) -> ctypes.c_void_p:

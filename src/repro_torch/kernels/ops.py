@@ -7,12 +7,15 @@ tensor on any other device raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.analysis.contracts import (
     assert_safe,
     check_conv2d_config,
     check_conv_plan,
+    check_matmul_config,
 )
 from repro_torch.core.conv import (
     ConvPlan,
@@ -53,16 +56,25 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _verify_matmul(cfg: QuantConfig, k: int, signed: bool) -> None:
+    assert_safe(check_matmul_config(cfg, k, signed=signed))
+
+
 def samd_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 k: int, cfg: QuantConfig, *,
                 signed: bool = True) -> torch.Tensor:
-    """Packed-weight matmul: x[..., K] @ dequant(packed)[K, N]."""
+    """Packed-weight matmul: x[..., K] @ dequant(packed)[K, N]. The
+    lane-safety check of (cfg, K, signed) runs first and raises
+    ``LaneSafetyError`` on an unsafe configuration. On a card, M rows of
+    x at or under ``samd_matmul.SPLITK_MAX_M`` take the split-K launcher,
+    more take the tile launcher."""
+    _verify_matmul(cfg, int(k), bool(signed))
+    if _on_cuda(x):
+        return _mm.samd_matmul_cuda(x, packed, scale, k, cfg, signed=signed)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _on_cuda(x2):
-        out = _mm.samd_matmul_cuda(x2, packed, scale, k, cfg, signed=signed)
-    else:
-        out = _mm.samd_matmul_plain(x2, packed, scale, k, cfg, signed=signed)
+    out = _mm.samd_matmul_plain(x.reshape(-1, x.shape[-1]), packed, scale,
+                                k, cfg, signed=signed)
     return out.reshape(lead + (out.shape[-1],))
 
 

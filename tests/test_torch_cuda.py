@@ -11,7 +11,8 @@ where only the port is installed.
 Tolerance: kernel and plain version both accumulate in f32 and round the
 output to bf16 (8 significant bits) in different orders, so they may be
 a rounding step or two apart: rtol = atol = 2e-2 of the output scale.
-Packed codes read back through the matmul are compared exactly. The conv
+Packed codes read back through the matmul are compared exactly, and two
+matmul calls on the same inputs must agree bit for bit. The conv
 kernel with f32 x sums the same f32 products as its plain version in
 another order: rtol = atol = 1e-4 of the output scale. The conv-chunks
 kernel is integer work and is compared bit for bit.
@@ -72,44 +73,86 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert ops.launch_counts() == before
 
 
+def _matmul_inputs(dev, gen, m, k, n, cfg, signed):
+    """Signed cases quantize a random weight, unsigned cases pack random
+    non-negative codes (lanes with no sign bit)."""
+    if signed:
+        packed, scale = pack_weights(
+            torch.randn(k, n, generator=gen, device=dev), cfg)
+    else:
+        codes = torch.randint(0, 2 ** cfg.bits, (n, k), generator=gen,
+                              device=dev)
+        fmt = samd.SAMDFormat(cfg.bits, cfg.lane_width, signed=False)
+        packed = samd.pack(codes, fmt).t().contiguous()
+        scale = torch.rand(1, n, generator=gen, device=dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    return x, packed, scale
+
+
+def _moved(before, after):
+    return {fn for fn in after if after[fn] != before[fn]}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("bits,spacer", [(2, "temporary"), (2, "permanent"),
                                          (4, "temporary"), (4, "permanent"),
                                          (8, "temporary"), (8, "permanent")])
-@pytest.mark.parametrize("m,k,n", [(8, 1024, 96), (300, 2816, 70),
-                                   (5, 203, 64)])
+@pytest.mark.parametrize("k,n", [(1024, 96), (2816, 70), (203, 70),
+                                 (203, 64)])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 24, 32, 33, 40, 300,
+                               1024])
 def test_samd_matmul_kernel_matches_plain(cuda, m, k, n, bits, spacer,
                                           signed):
-    """Ragged K and N, non-power-of-two vpw, unsigned lanes."""
+    """Ragged K and N (K = 203 and N = 70 are not 16-byte aligned: the
+    kernel's narrow copies), non-power-of-two vpw, unsigned lanes, M on
+    both sides of the split-K / tile switch (32); exactly the launcher
+    of ``launcher_for(m)`` runs, once."""
     gen = torch.Generator(device=cuda).manual_seed(m + k + bits)
     cfg = QuantConfig(bits=bits, spacer=spacer)
-    if signed:
-        packed, scale = pack_weights(
-            torch.randn(k, n, generator=gen, device=cuda), cfg)
-    else:
-        codes = torch.randint(0, 2 ** bits, (n, k), generator=gen,
-                              device=cuda)
-        fmt = samd.SAMDFormat(bits, cfg.lane_width, signed=False)
-        packed = samd.pack(codes, fmt).t().contiguous()
-        scale = torch.rand(1, n, generator=gen, device=cuda)
-    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
-    before = ops.launch_counts()["samd_matmul_launch"]
+    x, packed, scale = _matmul_inputs(cuda, gen, m, k, n, cfg, signed)
+    before = ops.launch_counts()
     got = ops.samd_matmul(x, packed, scale, k, cfg, signed=signed)
-    assert ops.launch_counts()["samd_matmul_launch"] == before + 1
+    after = ops.launch_counts()
+    fn = mm.launcher_for(m)
+    assert _moved(before, after) == {fn}
+    assert after[fn] == before[fn] + 1
     _close(got, mm.samd_matmul_plain(x, packed, scale, k, cfg,
                                      signed=signed))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,spacer", [(4, "permanent"), (2, "temporary")])
-def test_samd_matmul_kernel_reads_codes_exactly(cuda, bits, spacer):
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("bits,spacer", [(4, "permanent"), (2, "temporary"),
+                                         (8, "temporary")])
+def test_samd_matmul_kernel_reads_codes_exactly(cuda, bits, spacer, m):
+    """One-hot rows of x with unit scales read the codes back bit for bit
+    through either launcher (M = 8 split-K, M = 1024 tile)."""
     cfg = QuantConfig(bits=bits, spacer=spacer)
     k = 1024
     packed, _ = pack_weights(torch.randn(k, 64, device=cuda), cfg)
-    x = torch.eye(k, device=cuda, dtype=torch.bfloat16)
+    rows = torch.randperm(k, device=cuda)[:m]
+    x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda), rows] = 1
     got = ops.samd_matmul(x, packed, torch.ones(64, device=cuda), k, cfg)
-    assert torch.equal(got.float(), unpack_weights(packed, k, cfg).float())
+    want = unpack_weights(packed, k, cfg)[rows]
+    assert torch.equal(got.float(), want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 1024), (8, 2816, 1024),
+                                   (24, 1024, 2816), (256, 1024, 1024),
+                                   (1024, 1024, 2816)])
+def test_samd_matmul_kernel_is_deterministic(cuda, m, k, n):
+    """Two calls on the same inputs give bit-identical outputs, with K
+    split across blocks (fixed-order sum of the partials) and without."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    cfg = QuantConfig(bits=4)
+    x, packed, scale = _matmul_inputs(cuda, gen, m, k, n, cfg, True)
+    a = ops.samd_matmul(x, packed, scale, k, cfg)
+    b = ops.samd_matmul(x, packed, scale, k, cfg)
+    assert torch.equal(a, b)
+    _close(a, mm.samd_matmul_plain(x, packed, scale, k, cfg))
 
 
 @pytest.mark.cuda
@@ -269,7 +312,9 @@ def test_verify_kernel_refuses_what_it_does_not_take(cuda):
 def test_speculative_serving_on_card_launches_every_kernel(cuda, kv_bits):
     """A speculative engine on the card (4-bit target, its own draft)
     drafts through the ring-fold launcher, verifies through the verify
-    launcher, and serves every request in full."""
+    launcher (its linears, M = 4 x 4, through the split-K matmul; the
+    prefill's 4 x 32 rows through the tile matmul), and serves every
+    request in full."""
     from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = smoke_config("qwen3-14b").scaled(d_model=256, head_dim=64,
@@ -284,7 +329,8 @@ def test_speculative_serving_on_card_launches_every_kernel(cuda, kv_bits):
     ops.reset_launch_counts()
     done = eng.run_to_completion()
     counts = ops.launch_counts()
-    for fn in ("samd_matmul_launch", "paged_decode_ring_attention_launch",
+    for fn in ("samd_matmul_splitk_launch", "samd_matmul_tile_launch",
+               "paged_decode_ring_attention_launch",
                "paged_verify_attention_launch"):
         assert counts[fn] > 0, counts
     # every tick is a speculative one: the plain decode launcher idles
@@ -335,10 +381,6 @@ def test_forward_on_card_matches_plain_on_cpu(cuda, kv_bits):
         outs.append((pre.cpu()[pos >= 0], nxt.cpu()))
     for a, b in zip(*outs):
         _close(a, b, 5e-2)
-
-
-def _moved(before, after):
-    return {fn for fn in after if after[fn] != before[fn]}
 
 
 def test_cpu_conv_tensors_take_the_plain_version_and_launch_nothing():

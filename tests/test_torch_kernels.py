@@ -13,6 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+import math  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -297,7 +300,8 @@ def test_launch_counts_are_per_launcher():
     ring-fold and verify launchers of one .cu file count apart."""
     counts = ops.launch_counts()
     assert set(counts) == {
-        "samd_matmul_launch", "paged_decode_attention_launch",
+        "samd_matmul_splitk_launch", "samd_matmul_tile_launch",
+        "paged_decode_attention_launch",
         "paged_decode_ring_attention_launch",
         "paged_verify_attention_launch", "samd_conv2d_launch",
         "samd_conv_chunks_launch"}
@@ -316,6 +320,78 @@ def test_launch_counts_are_per_launcher():
             k.launch("paged_attention_launch")
     finally:
         k.launches = saved
+
+
+def test_matmul_launcher_rule():
+    """M at or under SPLITK_MAX_M takes the split-K launcher, more the
+    tile launcher; the two count apart."""
+    assert mm.SPLITK_MAX_M == 32
+    for m in (1, 8, 16, 17, 24, 32):
+        assert mm.launcher_for(m) == mm.SPLITK == "samd_matmul_splitk_launch"
+    for m in (33, 40, 64, 256, 1024, 2048):
+        assert mm.launcher_for(m) == mm.TILE == "samd_matmul_tile_launch"
+    assert set(mm.KERNEL.launches) == {mm.SPLITK, mm.TILE}
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 8, 24, 32, 33, 256, 1024])
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 2816), (2816, 1024),
+                                 (203, 70)])
+def test_matmul_split_rule(m, k, n, bits):
+    """Every split keeps at least one K-step of 16 words and together they
+    cover K exactly once, in at most 8 splits (one cluster); no split
+    where the output tiles reach half the launcher's block target; the
+    main path's decode shapes (4- and 8-bit weights) run at least 132
+    blocks (2-bit K = 1024 has only 4 K-steps of 16 words: 128)."""
+    vpw = 32 // bits
+    splits, per = mm.split_k(m, n, k, vpw)
+    steps = max(1, math.ceil(math.ceil(k / vpw) / mm.STEP_WORDS))
+    assert 1 <= splits <= mm.MAX_SPLITS and per >= 1
+    assert (splits - 1) * per < steps <= splits * per
+    fn = mm.launcher_for(m)
+    bn, bm = mm.BLOCK[fn]
+    tiles = -(-n // bn) * -(-m // bm)
+    if 2 * tiles >= mm.BLOCK_TARGET[fn]:
+        assert splits == 1
+    if m == 8 and k >= 1024 and bits in (4, 8):
+        assert tiles * splits >= mm.NUM_SMS
+
+
+@pytest.mark.parametrize("k", [203, 1024, 2816])
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("spacer", ["temporary", "permanent"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_matmul_check_matches_reference(bits, spacer, signed, k):
+    """The port's matmul lane-safety verdict equals the reference's."""
+    from repro.analysis import check_matmul_config as j_check
+    from repro_torch.analysis.contracts import check_matmul_config
+
+    want = j_check(JQuantConfig(bits=bits, spacer=spacer), k, signed=signed)
+    got = check_matmul_config(QuantConfig(bits=bits, spacer=spacer), k,
+                              signed=signed)
+    assert (got.ok, got.status, got.detail) == (want.ok, want.status,
+                                                 want.detail)
+
+
+def test_matmul_entry_point_runs_the_check(monkeypatch):
+    """ops.samd_matmul refuses what the check refuses, before any work."""
+    from repro_torch.analysis.contracts import check_matmul_config
+    from repro_torch.analysis.lanes import LaneSafetyError
+
+    def refuse(cfg, k, *, signed=True):
+        return dataclasses.replace(
+            check_matmul_config(cfg, k, signed=signed), status="overflow",
+            detail="refused")
+
+    monkeypatch.setattr(ops, "check_matmul_config", refuse)
+    ops._verify_matmul.cache_clear()  # verdicts are cached per config
+    x = torch.zeros((2, 8))
+    try:
+        with pytest.raises(LaneSafetyError):
+            ops.samd_matmul(x, torch.zeros((2, 4), dtype=torch.int32),
+                            torch.ones(4), 8, QuantConfig(bits=4))
+    finally:
+        ops._verify_matmul.cache_clear()
 
 
 def test_kernel_entry_points_refuse_other_devices():
