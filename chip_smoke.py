@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --old-matmul OLD/samd_matmul.cu   # + old vs new
+    python3 chip_smoke.py --old-conv OLD/samd_conv.cu       # the same, conv
 
 Phases, any failure exits non-zero:
   (a) build every CUDA kernel of ``src/repro_torch/kernels/csrc`` with nvcc
@@ -63,14 +64,18 @@ Phases, any failure exits non-zero:
       (conv1_2's input activations) with 3 taps through
       ``ops.samd_conv1d`` for the plans (2, 3, 4 bits signed; 4 bits
       unsigned), bit-identical to the plain chunks on the card and to a
-      direct integer convolution. Exactly the two conv launchers run
-      (31 and 4 launches), and (c) and (e) launch neither. Each layer is
-      timed beside its plain version, ``F.conv2d`` and its bound: the
-      larger of its bytes over 3.35 TB/s and its operations over the
-      card's peak for x's type: 67 TFLOP/s for f32 x (the H100 SXM f32
-      CUDA-core peak), 989 TFLOP/s for bf16 x (the dense bf16
-      tensor-core peak, on which a bf16 x times a small integer code is
-      exact; the kernel itself computes in f32 on CUDA cores).
+      direct integer convolution. Exactly the conv launchers of the rule
+      run (``samd_conv.conv2d_plan``: conv1_1's 3 cases on the im2col
+      launcher, the other 28 on the direct one; the chunk launcher 4
+      times), and (c) and (e) launch none. (f') times each layer as device
+      time (the call in a CUDA graph, replayed; ``F.conv2d`` alike), with
+      the host-paced times beside it, the wrapper's host time per call and
+      the plain version, against the bound of the kernel's route: the
+      larger of its bytes over 3.35 TB/s and its operations times its bf16
+      MMA terms (two for f32 x) over the 989 TFLOP/s bf16 tensor-core
+      peak, the first version's f32 CUDA-core bound (67 TFLOP/s) beside
+      it; with ``--old-conv SOURCE`` also a previous ``samd_conv.cu``, in
+      turns (old, new, new, old) on the same inputs.
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -114,6 +119,7 @@ DECODE = "paged_decode_attention_launch"
 RING = "paged_decode_ring_attention_launch"
 VERIFY = "paged_verify_attention_launch"
 CONV2D = "samd_conv2d_launch"
+CONV2D_IM2COL = "samd_conv2d_im2col_launch"
 CHUNKS = "samd_conv_chunks_launch"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/samd_conv.cu"
@@ -654,31 +660,37 @@ def graph_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def old_launcher(source, symbol, n_ints):
+    """``symbol`` of a previous kernel source (e.g. from a git archive of
+    the parent commit), built with the port's nvcc flags and bound
+    through ctypes as (4 pointers, ``n_ints`` ints, stream) -> int."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / f"libold_{src.stem}-{digest}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True,
+                       text=True, timeout=600)
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 class OldMatmul:
     """The previous ``samd_matmul`` kernel (a ``samd_matmul.cu`` with one
     ``samd_matmul_launch(x, packed, scale, out, M, N, K, bits,
-    lane_width, vpw, signed, stream)``, e.g. from a git archive of the
-    parent commit), built with the port's nvcc flags and called through
-    ctypes, for a comparison on one card."""
+    lane_width, vpw, signed, stream)``), for a comparison on one card."""
 
     def __init__(self, source):
-        import ctypes
-        import hashlib
-
-        from repro_torch.kernels import _build
-
-        src = Path(source).resolve()
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        lib = _build.BUILD_DIR / f"libold_samd_matmul-{digest}.so"
-        if not lib.exists():
-            _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                            str(lib), str(src)], check=True,
-                           capture_output=True, text=True, timeout=600)
-        self.fn = ctypes.CDLL(str(lib)).samd_matmul_launch
-        self.fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                            + [ctypes.c_void_p])
-        self.fn.restype = ctypes.c_int
+        self.fn = old_launcher(source, "samd_matmul_launch", 7)
 
     def __call__(self, x, packed, scale, k, cfg):
         from repro_torch.kernels._build import ptr, stream_handle
@@ -1024,7 +1036,111 @@ def conv1d_signal(dev, gen, bits, signed):
     return x, k, make_plan(bits, CONV1D_TAPS, signed)
 
 
-def run_vggb(dev, gen, timer, card):
+def conv2d_plan_of(x, packed, scale, cfg, padding=1):
+    from repro_torch.kernels import samd_conv as sc
+
+    c_in, h, w = x.shape
+    kh, kw, cw, c_out = packed.shape
+    return sc.conv2d_plan(c_in, cw, h, w, kh, kw, c_out, padding,
+                          cfg.values_per_word, x.dtype == torch.bfloat16)
+
+
+class OldConv:
+    """A previous ``samd_conv2d`` kernel (a ``samd_conv.cu`` whose
+    ``samd_conv2d_launch(x, packed, scale, out, C, H, W, KH, KW, CW, N,
+    pad, bits, lane_width, vpw, signed, bcw, x_bf16, stream)`` takes
+    ``bcw`` words of channels per step), for a comparison on one card."""
+
+    def __init__(self, source):
+        self.fn = old_launcher(source, "samd_conv2d_launch", 14)
+
+    def __call__(self, x, packed, scale, cfg, padding=1):
+        from repro_torch.kernels._build import ptr, stream_handle
+
+        c_in, h, w = x.shape
+        kh, kw, cw, n = packed.shape
+        vpw = cfg.values_per_word
+        out = torch.empty((h + 2 * padding - kh + 1, w + 2 * padding - kw + 1,
+                           n), dtype=x.dtype, device=x.device)
+        err = self.fn(ptr(x), ptr(packed), ptr(scale), ptr(out), c_in, h, w,
+                      kh, kw, cw, n, padding, cfg.bits, cfg.lane_width, vpw,
+                      1, max(1, 16 // vpw), int(x.dtype == torch.bfloat16),
+                      stream_handle(x))
+        if err:
+            raise RuntimeError(f"old samd_conv2d launch failed ({err})")
+        return out
+
+
+def time_conv2d(name, bits, dtype, args, out, timer, old, host=False):
+    """One (f) case's times: device time (the call captured in a CUDA
+    graph and replayed) of the kernel, of the previous kernel when
+    ``old`` is given (in turns old, new, new, old) and of F.conv2d (the
+    yardstick); host-paced times of the kernel and the yardstick; the
+    plain version; with ``host``, the wrapper's host time per call (1000
+    calls, no sync). The bound is the route's: the operations of each
+    bf16 MMA the kernel issues (two x terms for f32 x) over 989 TFLOP/s,
+    or the bytes over 3.35 TB/s; the f32 CUDA-core bound (67 TFLOP/s) of
+    the first version stands beside it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_conv as sc
+
+    x, packed, scale, cfg = args
+    plan = conv2d_plan_of(*args)
+
+    def new():
+        return ops.samd_conv2d(*args)
+
+    t = dict(ms=[], old_ms=[])
+    if old is not None:
+        check = (functools.partial(max_scaled_err, tol=CONV_F32_TOL)
+                 if dtype == torch.float32
+                 else functools.partial(max_err, tol=BF16_TOL))
+        check(old(x, packed, scale, cfg), sc.samd_conv2d_plain(*args))
+
+        def prev():
+            return old(x, packed, scale, cfg)
+        for who, fn in (("old_ms", prev), ("ms", new), ("ms", new),
+                        ("old_ms", prev)):
+            t[who].append(graph_ms(fn))
+    else:
+        t["ms"].append(graph_ms(new))
+    lib_fn, _ = library_conv2d(x, packed, scale, cfg)
+    n_bytes = ((x.numel() + out.numel()) * x.element_size()
+               + packed.numel() * 4 + scale.numel() * 4)
+    kh, kw, _, c_out = packed.shape
+    oh, ow, _ = out.shape
+    n_ops = 2 * oh * ow * c_out * x.shape[0] * kh * kw
+    # bf16 x times a code that bf16 holds (all of (f)'s, 8 bits or fewer)
+    # is one exact bf16 MMA; f32 x runs two (hi and lo terms)
+    mmas = plan.terms
+    extra = dict(layer=name, bits=bits, launcher=plan.launcher,
+                 splits=plan.splits, blocks=plan.blocks, mma_terms=mmas)
+    if old is not None:
+        extra["old_ms"] = float(np.mean(t["old_ms"]))
+    extra.update(
+        host_paced_ms=timer(new, iters=10),
+        library_host_paced_ms=timer(lib_fn, iters=10),
+        bound_f32_cores_ms=(bound_ms(n_bytes, n_ops, F32_OPS_PER_S)[0]
+                            if dtype == torch.float32 else None))
+    if host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            new()
+        extra["host_us_per_call"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    ms = float(np.mean(t["ms"]))
+    row = timing_row(
+        f"samd_conv2d {name} {bits}-bit {str(dtype)[6:]}", ms,
+        timer(lambda: sc.samd_conv2d_plain(*args), iters=3),
+        graph_ms(lib_fn), n_bytes, n_ops, BF16_OPS_PER_S / mmas,
+        tflops=n_ops / ms / 1e9, **extra)
+    if row["ms"] < row["bound_ms"]:
+        raise AssertionError(f"{name}: {row['ms']} ms under its bound")
+    return row
+
+
+def run_vggb(dev, gen, timer, card, old=None):
     """Phase (f): the main path through both conv launchers, then every
     result against its references, then the timings. Returns the two
     kernels-line entries."""
@@ -1042,7 +1158,10 @@ def run_vggb(dev, gen, timer, card):
     outs1d = [ops.samd_conv1d(*sig) for sig in signals]
     torch.cuda.synchronize(dev)
     counts = ops.launch_counts()
-    want = {CONV2D: len(cases), CHUNKS: len(CONV1D_PLANS)}
+    want = {CHUNKS: len(CONV1D_PLANS)}
+    for args in inputs:  # conv2d_plan's launcher for each case
+        fn = conv2d_plan_of(*args).launcher
+        want[fn] = want.get(fn, 0) + 1
     if counts != {fn: want.get(fn, 0) for fn in counts}:
         raise AssertionError(f"(f) launched {counts}, expected {want}")
     log(f"  (f) launches: {json.dumps(counts)}")
@@ -1090,29 +1209,21 @@ def run_vggb(dev, gen, timer, card):
     rows = {}
     for (name, c_in, c_out, h, w, bits, dtype), args, out in zip(
             cases, inputs, outs):
-        x, packed, scale, cfg = args
-        kern = timer(lambda: ops.samd_conv2d(*args), iters=10)
-        plain = timer(lambda: sc.samd_conv2d_plain(*args), iters=3)
-        lib_fn, _ = library_conv2d(x, packed, scale, cfg)
-        lib = timer(lib_fn, iters=10)
-        n_bytes = ((x.numel() + out.numel()) * x.element_size()
-                   + packed.numel() * 4 + scale.numel() * 4)
-        n_ops = 2 * h * w * c_out * c_in * 9
-        # a bf16 x times a small integer code is exact on the bf16 tensor
-        # cores (f32 accumulation), so bf16 x is bound by their rate
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        rows[name, bits, dtype] = timing_row(
-            f"samd_conv2d {name} {bits}-bit {str(dtype)[6:]}", kern, plain,
-            lib, n_bytes, n_ops, peak, layer=name, bits=bits,
-            tflops=n_ops / kern / 1e9)
+        rows[name, bits, dtype] = time_conv2d(
+            name, bits, dtype, args, out, timer, old,
+            host=(name, bits) == CONV_ENTRY_CASE and dtype == torch.float32)
     for b in CONV_BITS:
         sel = [r for key, r in rows.items()
                if key[1] == b and key[2] == torch.float32]
         log(f"  VGG-B 10 layers {b}-bit f32: kernel "
-            f"{sum(r['ms'] for r in sel):.4f} ms, plain "
-            f"{sum(r['plain_ms'] for r in sel):.4f}, F.conv2d "
+            f"{sum(r['ms'] for r in sel):.4f} ms"
+            + (f", previous kernel {sum(r['old_ms'] for r in sel):.4f}"
+               if old is not None else "")
+            + f", plain {sum(r['plain_ms'] for r in sel):.4f}, F.conv2d "
             f"{sum(r['library_ms'] for r in sel):.4f}, bound "
-            f"{sum(r['bound_ms'] for r in sel):.4f}")
+            f"{sum(r['bound_ms'] for r in sel):.4f} (f32 CUDA-core bound "
+            f"{sum(r['bound_f32_cores_ms'] for r in sel):.4f}) (device "
+            "times)")
 
     chunk_rows = {}
     for (bits, signed), (x, k, plan) in zip(CONV1D_PLANS, signals):
@@ -1143,7 +1254,16 @@ def run_vggb(dev, gen, timer, card):
             rows[name, bits, torch.float32],
             f"{name}: x [{c_in}, {h}, {w}] f32, 3x3, padding 1, {bits}-bit "
             f"packed weights, C_out {c_out}; library: F.conv2d of the "
-            "dequantized weight (f32, no TF32)"),
+            "dequantized weight (f32, no TF32); ms, old_ms and library_ms "
+            "are device times"),
+        kernel_entry(
+            "samd_conv2d im2col (VGG-B conv1_1, 4-bit, f32)", CONV_SOURCE,
+            "src/repro/kernels/samd_conv.py:192", counts[CONV2D_IM2COL],
+            errs["conv1_1", 4, torch.float32][0],
+            rows["conv1_1", 4, torch.float32],
+            "conv1_1: x [3, 224, 224] f32, 3x3, padding 1, 4-bit packed "
+            "weights, C_out 64 (27 products a pixel); library: F.conv2d of "
+            "the dequantized weight (f32, no TF32); device times"),
         kernel_entry(
             f"samd_conv_chunks ({bits1d}-bit signed plan)", CONV_SOURCE,
             "src/repro/kernels/samd_conv.py:105", counts[CHUNKS], lane_err,
@@ -1198,6 +1318,10 @@ def main() -> int:
                     help="a previous samd_matmul.cu (e.g. from a git "
                     "archive of the parent commit) to time in turns with "
                     "the kernel in (d)")
+    ap.add_argument("--old-conv", metavar="SOURCE",
+                    help="a previous samd_conv.cu (e.g. from a git archive "
+                    "of the parent commit) to time in turns with the "
+                    "conv2d kernel in (f')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1334,7 +1458,8 @@ def main() -> int:
             "ps=16 n_pp=32, per layer"))
 
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
-    kernels += run_vggb(dev, gen, timer, card)
+    kernels += run_vggb(dev, gen, timer, card,
+                        OldConv(args.old_conv) if args.old_conv else None)
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,21 @@
 """SAMD convolutions: the CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``repro/kernels/samd_conv.py``; both kernels are in
-``csrc/samd_conv.cu``, each with a launcher of its own:
+``csrc/samd_conv.cu``:
 
-- ``samd_conv2d_launch`` replaces the Pallas kernel ``samd_conv2d``: a
-  stride-1 2D conv of x [C_in, H, W] with packed HWIO weights
-  [KH, KW, ceil(C_in/vpw), C_out] -> [OH, OW, C_out], the scale applied
-  once per output channel. ``samd_conv2d_plain`` is the reference's
+- ``samd_conv2d_launch`` and ``samd_conv2d_im2col_launch`` replace the
+  Pallas kernel ``samd_conv2d``: a stride-1 2D conv of x [C_in, H, W]
+  with packed HWIO weights [KH, KW, ceil(C_in/vpw), C_out] -> [OH, OW,
+  C_out], the scale applied once per output channel. Both run one
+  tensor-core implicit GEMM (output pixels x C_out x KH*KW*C_in) over a
+  bf16 workspace that a pre-pass fills from x: pixel-major with its
+  padding (each tap a row offset), or, for layers with few channels,
+  the KH*KW*C_in products of each pixel side by side.
+  :func:`conv2d_plan` is the rule that picks the launcher, the K-step and
+  the K split from the shape. ``samd_conv2d_plain`` is the reference's
   ``samd_conv2d_xla`` in PyTorch: per block of C_in words and per (kh,
-  kw), unpack the codes and contract the shifted window in f32.
+  kw), unpack the codes, cast them through x's dtype (the reference's
+  ``codes.astype(x.dtype)``) and contract the shifted window in f32.
 - ``samd_conv_chunks_launch`` replaces ``samd_conv_chunks``: each packed
   chunk word times the kernel word (conv as long multiplication, §5-6),
   extracted to int32 [nc, lanes + taps - 1]. ``samd_conv_chunks_plain``
@@ -18,6 +25,8 @@ Counterpart of ``repro/kernels/samd_conv.py``; both kernels are in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -27,16 +36,105 @@ from repro_torch.kernels._build import Kernel, ptr, stream_handle
 from repro_torch.kernels.samd_matmul import unpack_codes
 from repro_torch.quant.config import QuantConfig
 
+DIRECT = "samd_conv2d_launch"
+IM2COL = "samd_conv2d_im2col_launch"
+_CONV2D_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 16 + [ctypes.c_void_p])
 KERNEL = Kernel(
     "samd_conv", "samd_conv.cu",
-    {"samd_conv2d_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-                           + [ctypes.c_void_p],
-     "samd_conv_chunks_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                                + [ctypes.c_void_p]},
+    {DIRECT: _CONV2D_ARGS, IM2COL: _CONV2D_ARGS,
+     "samd_conv_chunks_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
 )
-# channels the kernel and its plain version take per reduction step
-# (rounded to whole words)
+# output pixels x output channels of one block of the conv2d kernel
+BLOCK_M, BLOCK_N = 128, 64
+# words of channels per K-step for each lanes-per-word count: a step is a
+# multiple of 16 values of K (the MMA's k), 32-80; bf16 x (one term where
+# f32 x runs two) takes twice the words where that makes 32 values from
+# at most 8 words. The kernel is compiled for these steps and refuses a
+# plan whose step is not its own.
+STEP_WORDS = {1: 32, 2: 16, 3: 16, 4: 8, 5: 16, 6: 8, 8: 4, 10: 8, 16: 2,
+              32: 1}
+ONE_TERM_MULT = 2
+MAX_SPLITS = 8    # K splits of one tile form one cluster: the portable size
+NUM_SMS = 132     # H100 SXM
+# channels the plain version takes per reduction step (rounded to whole
+# words)
 BLOCK_C = 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv2dPlan:
+    """How the conv2d kernel runs one shape: its launcher, the values of K
+    per step, the number of steps, the K splits (a divisor of the steps),
+    the output tiles and the workspace (x terms x rows x bf16 columns).
+    The kernel takes ``step_k`` and ``steps`` as they are and lays its
+    workspace out from them."""
+
+    launcher: str
+    step_k: int
+    steps: int
+    splits: int
+    tiles: int
+    ws_rows: int
+    ws_cols: int
+    terms: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def ws_elems(self) -> int:
+        return self.terms * self.ws_rows * self.ws_cols
+
+
+@functools.lru_cache(maxsize=4096)
+def conv2d_plan(c_in: int, cw: int, h: int, w: int, kh: int, kw: int,
+                c_out: int, padding: int, vpw: int, x_bf16: bool,
+                launcher: str | None = None) -> Conv2dPlan:
+    """The rule for the conv2d kernel, for x [c_in, h, w] and packed
+    weights [kh, kw, cw, c_out]. A K-step is one tap's ``STEP_WORDS[vpw]``
+    words of channels (twice that for bf16 x where it makes 32 values
+    from at most 8 words), so a tap takes ceil(cw / words) steps; where
+    that pads the channels so far that writing each pixel's KH*KW*C_in
+    products side by side takes at most half the steps (conv1_1's 27
+    products: one step against 9), the im2col launcher runs, else the
+    direct one (``launcher`` names one instead, to compare the two). f32 x
+    runs as two bf16 terms. K is split only where the output tiles fill
+    fewer than ``NUM_SMS`` SMs: into the largest divisor of the steps, at
+    most ``MAX_SPLITS``, that keeps the blocks within two per SM (one
+    wave)."""
+    sw = STEP_WORDS[vpw]
+    if x_bf16 and sw * vpw == 32 and sw <= 8:
+        sw *= ONE_TERM_MULT
+    step_k = sw * vpw
+    taps = kh * kw
+    oh, ow = h + 2 * padding - kh + 1, w + 2 * padding - kw + 1
+    chunks = _cdiv(cw, sw)
+    im2col_steps = _cdiv(taps * c_in, step_k)
+    if launcher is None:
+        launcher = IM2COL if 2 * im2col_steps <= taps * chunks else DIRECT
+    if launcher == IM2COL:
+        steps = im2col_steps
+        rows, cols, m = oh * ow, im2col_steps * step_k, oh * ow
+    elif launcher == DIRECT:
+        steps = taps * chunks
+        wp = w + 2 * padding
+        rows, cols, m = (h + 2 * padding) * wp, chunks * step_k, oh * wp
+    else:
+        raise ValueError(f"no conv2d launcher {launcher!r}")
+    tiles = _cdiv(m, BLOCK_M) * _cdiv(c_out, BLOCK_N)
+    splits = 1
+    if tiles < NUM_SMS:
+        splits = max(d for d in range(1, MAX_SPLITS + 1)
+                     if steps % d == 0 and (d == 1 or
+                                            tiles * d <= 2 * NUM_SMS))
+    return Conv2dPlan(launcher, step_k, steps, splits, tiles, rows, cols,
+                      1 if x_bf16 else 2)
 
 
 def block_words(vpw: int) -> int:
@@ -67,9 +165,11 @@ def samd_conv2d_plain(x: torch.Tensor, packed: torch.Tensor,
                       padding: int = 1,
                       signed: bool = True) -> torch.Tensor:
     """The blocked conv loop in PyTorch; returns [OH, OW, C_out] in x's
-    dtype. C_in is contracted in the kernel's steps of ``BLOCK_C``
-    channels, zero-padded to whole steps, and the image by ``padding``,
-    as the reference's ``_pad_conv_operands``."""
+    dtype. C_in is contracted in steps of ``BLOCK_C`` channels,
+    zero-padded to whole steps, and the image by ``padding``, as the
+    reference's ``_pad_conv_operands``. The codes are cast through x's
+    dtype, as the reference's ``codes.astype(x.dtype)``: exact up to 8
+    unsigned / 9 signed bits, rounded above that for bf16 x."""
     oh, ow, n = conv2d_shape(x, packed, cfg, padding)
     kh_taps, kw_taps, cw, _ = packed.shape
     vpw = cfg.values_per_word
@@ -88,19 +188,21 @@ def samd_conv2d_plain(x: torch.Tensor, packed: torch.Tensor,
                 codes = unpack_codes(packed[i, j, cb * bcw:(cb + 1) * bcw],
                                      cfg.bits, cfg.lane_width, signed)
                 patch = xb[:, i:i + oh, j:j + ow].reshape(bc, oh * ow)
-                acc += patch.t() @ codes.to(torch.float32)
+                acc += patch.t() @ codes.to(x.dtype).to(torch.float32)
     out = acc * scale.reshape(1, n).to(torch.float32)
     return out.reshape(oh, ow, n).to(x.dtype)
 
 
-def samd_conv2d_cuda(x: torch.Tensor, packed: torch.Tensor,
-                     scale: torch.Tensor, cfg: QuantConfig, *,
-                     padding: int = 1, signed: bool = True) -> torch.Tensor:
-    """Launch ``samd_conv2d_launch`` on the current stream. Takes f32 or
-    bf16 ``x``, int32 words and f32 scales, all on one CUDA device;
-    raises on anything else, and on a failed build or launch."""
+def conv2d_launch_args(x: torch.Tensor, packed: torch.Tensor,
+                       scale: torch.Tensor, cfg: QuantConfig, *,
+                       padding: int = 1, signed: bool = True,
+                       launcher: str | None = None):
+    """Check the operands of the conv2d kernel and make its launch: the
+    plan of :func:`conv2d_plan` (or of ``launcher``), the output, the
+    workspace (keep it alive until the launch is queued) and the
+    launcher's arguments. Takes f32 or bf16 ``x``, int32 words and f32
+    scales, all on one CUDA device; raises on anything else."""
     oh, ow, n = conv2d_shape(x, packed, cfg, padding)
-    dev = x.device
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"samd_conv2d kernel takes f32 or bf16 x, got "
                         f"{x.dtype}")
@@ -109,19 +211,40 @@ def samd_conv2d_cuda(x: torch.Tensor, packed: torch.Tensor,
                         f"{packed.dtype}/{scale.dtype}")
     if scale.numel() != n:
         raise ValueError(f"scale has {scale.numel()} entries for C_out={n}")
-    if packed.device != dev or scale.device != dev:
+    dev = x.get_device()
+    if packed.get_device() != dev or scale.get_device() != dev:
         raise ValueError("x, packed and scale must share one CUDA device")
     x, packed, scale = x.contiguous(), packed.contiguous(), scale.contiguous()
     c_in, h, w = x.shape
     kh, kw, cw, _ = packed.shape
     vpw = cfg.values_per_word
-    out = torch.empty((oh, ow, n), dtype=x.dtype, device=dev)
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            "samd_conv2d_launch", ptr(x), ptr(packed), ptr(scale), ptr(out),
-            c_in, h, w, kh, kw, cw, n, padding, cfg.bits, cfg.lane_width,
-            vpw, int(signed), block_words(vpw),
-            int(x.dtype == torch.bfloat16), stream_handle(x))
+    x_bf16 = x.dtype == torch.bfloat16
+    plan = conv2d_plan(c_in, cw, h, w, kh, kw, n, padding, vpw, x_bf16,
+                       launcher)
+    out = torch.empty((oh, ow, n), dtype=x.dtype, device=x.device)
+    ws = torch.empty(plan.ws_elems, dtype=torch.bfloat16, device=x.device)
+    args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), plan.ws_elems, c_in, h, w, kh, kw,
+            cw, n, padding, cfg.bits, cfg.lane_width, vpw, int(signed),
+            int(x_bf16), plan.splits, plan.step_k, plan.steps,
+            stream_handle(x))
+    return plan, out, ws, args
+
+
+def samd_conv2d_cuda(x: torch.Tensor, packed: torch.Tensor,
+                     scale: torch.Tensor, cfg: QuantConfig, *,
+                     padding: int = 1, signed: bool = True) -> torch.Tensor:
+    """Launch the conv2d kernel on the current stream, by the launcher of
+    :func:`conv2d_plan`; operands as :func:`conv2d_launch_args`. Raises on
+    bad operands and on a failed build or launch."""
+    plan, out, _ws, args = conv2d_launch_args(x, packed, scale, cfg,
+                                              padding=padding, signed=signed)
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        KERNEL.launch(plan.launcher, *args)
+    else:
+        with torch.cuda.device(dev):
+            KERNEL.launch(plan.launcher, *args)
     return out
 
 

@@ -10,8 +10,9 @@ speculative verify) and ``samd_matmul_tile_launch`` above it (prefill);
 :func:`launcher_for` is the rule and :func:`split_k` cuts K across blocks
 when the output tiles alone would leave SMs idle. ``samd_matmul_plain``
 is the reference's K-block loop (``samd_matmul_xla``) in PyTorch: per
-block of packed words, unpack to integer codes, accumulate the raw-code
-product in f32, and apply the per-column scale once at the end.
+block of packed words, unpack to integer codes, cast them through x's
+dtype, accumulate the raw-code product in f32, and apply the
+per-column scale once at the end.
 """
 from __future__ import annotations
 
@@ -112,8 +113,10 @@ def samd_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
         codes = unpack_codes(packed[w0:w0 + bkw], cfg.bits, cfg.lane_width,
                              signed)
         k1 = min(k0 + codes.shape[0], k)
+        # codes go through x's dtype as the reference's codes.astype(
+        # x.dtype): bf16 rounds codes over 8 unsigned / 9 signed bits
         acc += x[:, k0:k1].to(torch.float32) @ codes[:k1 - k0].to(
-            torch.float32)
+            x.dtype).to(torch.float32)
     return (acc * scale.reshape(1, n).to(torch.float32)).to(x.dtype)
 
 

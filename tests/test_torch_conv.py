@@ -479,6 +479,121 @@ def test_samd_conv2d_plain_bf16_and_checks():
                         torch.from_numpy(scale), cfg, padding=0)
 
 
+WIDE_CODES = [(10, True), (12, True), (16, True), (9, False), (12, False),
+              (16, False)]
+
+
+@pytest.mark.parametrize("bits,signed", WIDE_CODES)
+def test_samd_conv2d_plain_bf16_wide_codes_match_reference(bits, signed):
+    """bf16 x with codes that bf16 cannot hold exactly (signed over 9
+    bits, unsigned over 8): the reference casts the codes to x's dtype
+    before the product (``codes.astype(x.dtype)``), and so must the port;
+    within 1e-3 of the output scale of the xla lowering (the codes kept
+    exact instead read 2.4-4.7e-3 here)."""
+    x, packed, scale, jcfg = _conv2d_case(bits, 16, 8, 6, 6, signed,
+                                          seed=bits + 7 * signed)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jops.samd_conv2d(
+        xb, jnp.asarray(packed), jnp.asarray(scale), jcfg, signed=signed,
+        backend="xla", verify=False), np.float32)
+    got = ops.samd_conv2d(
+        torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16),
+        _t(packed), torch.from_numpy(scale), QuantConfig(bits=bits),
+        signed=signed)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 1e-3 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("layer", VGGB_LAYERS, ids=lambda lay: lay[0])
+def test_conv2d_plan_fills_the_card_at_vggb_shapes(layer, bits, x_bf16):
+    """Every VGG-B layer runs at least 66 blocks (half the SMs), its K
+    splits divide its K-steps and form clusters of at most 8, and only
+    conv1_1 (27 products a pixel) takes the im2col launcher, in one
+    K-step (32 values for f32 x, 64 for bf16 x)."""
+    name, c_in, c_out, h, w = layer
+    vpw = QuantConfig(bits=bits).values_per_word
+    plan = sc.conv2d_plan(c_in, -(-c_in // vpw), h, w, 3, 3, c_out, 1, vpw,
+                          x_bf16)
+    assert plan.blocks >= 66
+    assert 1 <= plan.splits <= sc.MAX_SPLITS
+    assert plan.steps % plan.splits == 0
+    assert plan.terms == (1 if x_bf16 else 2)
+    if name == "conv1_1":
+        assert plan.launcher == sc.IM2COL and plan.steps == 1
+        assert (plan.ws_rows, plan.ws_cols) == (h * w, plan.step_k)
+    else:
+        assert plan.launcher == sc.DIRECT
+        assert plan.steps == 9 * c_in // plan.step_k
+        assert plan.ws_rows == (h + 2) * (w + 2) and plan.ws_cols == c_in
+    if plan.tiles >= sc.NUM_SMS:
+        assert plan.splits == 1
+    else:
+        assert plan.splits > 1 and plan.blocks <= 2 * sc.NUM_SMS
+
+
+@pytest.mark.parametrize("bits,spacer", [(1, "temporary"), (2, "permanent"),
+                                         (3, "temporary"), (5, "temporary"),
+                                         (8, "permanent"), (9, "temporary"),
+                                         (16, "permanent")])
+@pytest.mark.parametrize("c_in,h,w,kh,kw,c_out,padding", [
+    (3, 20, 37, 3, 3, 64, 1), (300, 7, 7, 3, 3, 70, 1),
+    (37, 9, 12, 1, 1, 70, 0), (37, 9, 12, 5, 3, 70, 1),
+    (19, 5, 6, 3, 3, 8, 0)])
+def test_conv2d_plan_covers_k_exactly(c_in, h, w, kh, kw, c_out, padding,
+                                      bits, spacer):
+    """Every lanes-per-word count: a K-step is a multiple of 16 values of
+    K, the steps cover every (tap, channel) product, the workspace holds
+    every row the kernel reads, and the deep small layer is split."""
+    vpw = QuantConfig(bits=bits, spacer=spacer).values_per_word
+    cw = -(-c_in // vpw)
+    plan = sc.conv2d_plan(c_in, cw, h, w, kh, kw, c_out, padding, vpw, False)
+    assert plan.step_k % 16 == 0 and plan.step_k % vpw == 0  # whole words
+    assert 32 <= plan.step_k <= 80
+    assert plan.steps * plan.step_k >= kh * kw * c_in
+    assert plan.steps % plan.splits == 0 and plan.splits <= sc.MAX_SPLITS
+    assert plan.ws_elems == 2 * plan.ws_rows * plan.ws_cols
+    oh, ow = h + 2 * padding - kh + 1, w + 2 * padding - kw + 1
+    if plan.launcher == sc.IM2COL:
+        assert plan.ws_rows == oh * ow
+        assert plan.ws_cols == plan.steps * plan.step_k
+    else:
+        assert plan.ws_rows == (h + 2 * padding) * (w + 2 * padding)
+        assert plan.ws_cols * kh * kw == plan.steps * plan.step_k
+        assert plan.ws_cols >= cw * vpw
+    if (c_in, h) == (300, 7):
+        assert plan.splits > 1
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("c_in,bits,surplus", [(32, 4, 1), (37, 4, 3),
+                                               (64, 4, 1), (3, 4, 1),
+                                               (16, 16, 1), (300, 2, 2)])
+def test_conv2d_plan_covers_surplus_words(c_in, bits, surplus, x_bf16):
+    """Packed weights may hold more words than C_in needs: the direct
+    launcher's steps cover every word of a tap (C_in 64 at 4 bits with 9
+    words takes three steps a tap with f32 x where 8 words take two), the
+    workspace holds them, the splits still divide the steps, and the
+    im2col launcher, which reads C_in's words only, keeps its plan."""
+    vpw = QuantConfig(bits=bits).values_per_word
+    cw = -(-c_in // vpw)
+    plan = sc.conv2d_plan(c_in, cw + surplus, 9, 12, 3, 3, 70, 1, vpw, x_bf16)
+    assert plan.steps % plan.splits == 0
+    assert plan.ws_elems == plan.terms * plan.ws_rows * plan.ws_cols
+    if plan.launcher == sc.DIRECT:
+        assert plan.ws_cols >= (cw + surplus) * vpw
+        assert plan.steps == 9 * plan.ws_cols // plan.step_k
+    else:
+        assert plan == sc.conv2d_plan(c_in, cw, 9, 12, 3, 3, 70, 1, vpw,
+                                      x_bf16, sc.IM2COL)
+    if (c_in, bits, surplus, x_bf16) == (64, 4, 1, False):
+        tight = sc.conv2d_plan(c_in, cw, 9, 12, 3, 3, 70, 1, vpw, x_bf16)
+        assert tight.launcher == plan.launcher == sc.DIRECT
+        assert (tight.steps, plan.steps) == (18, 27)  # 4 words a step
+
+
 # -- analysis: the conv lane-safety checks -------------------------------------
 
 @pytest.mark.parametrize("bits,signed", PLANS)

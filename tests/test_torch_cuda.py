@@ -12,10 +12,12 @@ Tolerance: kernel and plain version both accumulate in f32 and round the
 output to bf16 (8 significant bits) in different orders, so they may be
 a rounding step or two apart: rtol = atol = 2e-2 of the output scale.
 Packed codes read back through the matmul are compared exactly, and two
-matmul calls on the same inputs must agree bit for bit. The conv
-kernel with f32 x sums the same f32 products as its plain version in
-another order: rtol = atol = 1e-4 of the output scale. The conv-chunks
-kernel is integer work and is compared bit for bit.
+matmul calls on the same inputs must agree bit for bit, and so must two
+conv calls. The conv kernel with f32 x splits x into two bf16 terms
+(|x - hi - lo| <= 2^-17 |x|) and sums their exact products in f32 in
+another order than its plain version: rtol = atol = 1e-4 of the output
+scale. The conv-chunks kernel is integer work and is compared bit for
+bit.
 """
 import pytest
 
@@ -38,7 +40,6 @@ from repro_torch.quant.packing import (  # noqa: E402
 
 TOL = 2e-2
 CONV_F32_TOL = 1e-4
-CONV_LAUNCHERS = ("samd_conv2d_launch", "samd_conv_chunks_launch")
 
 
 @pytest.fixture
@@ -118,6 +119,25 @@ def test_samd_matmul_kernel_matches_plain(cuda, m, k, n, bits, spacer,
     assert _moved(before, after) == {fn}
     assert after[fn] == before[fn] + 1
     _close(got, mm.samd_matmul_plain(x, packed, scale, k, cfg,
+                                     signed=signed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("bits,spacer", [(9, "temporary"), (10, "temporary"),
+                                         (12, "permanent"), (16, "temporary"),
+                                         (16, "permanent")])
+@pytest.mark.parametrize("m", [8, 24, 33, 1024])
+def test_samd_matmul_kernel_matches_plain_at_wide_codes(cuda, m, bits,
+                                                        spacer, signed):
+    """Codes of 9-16 bits, which bf16 holds exactly only up to 8 unsigned
+    / 9 signed bits: the kernel and the plain version both round them as
+    the reference's ``codes.astype(x.dtype)``, through either launcher."""
+    gen = torch.Generator(device=cuda).manual_seed(m + bits)
+    cfg = QuantConfig(bits=bits, spacer=spacer)
+    x, packed, scale = _matmul_inputs(cuda, gen, m, 1024, 96, cfg, signed)
+    got = ops.samd_matmul(x, packed, scale, 1024, cfg, signed=signed)
+    _close(got, mm.samd_matmul_plain(x, packed, scale, 1024, cfg,
                                      signed=signed))
 
 
@@ -400,13 +420,13 @@ def test_cpu_conv_tensors_take_the_plain_version_and_launch_nothing():
     assert ops.launch_counts() == before
 
 
-def _conv_weights(dev, gen, bits, spacer, c_in, c_out, signed):
+def _conv_weights(dev, gen, bits, spacer, c_in, c_out, signed, kh=3, kw=3):
     cfg = QuantConfig(bits=bits, spacer=spacer)
     if signed:
         return (*pack_conv_weights(
-            torch.randn(3, 3, c_in, c_out, generator=gen, device=dev), cfg),
-            cfg)
-    codes = torch.randint(0, 2 ** bits, (3, 3, c_out, c_in), generator=gen,
+            torch.randn(kh, kw, c_in, c_out, generator=gen, device=dev),
+            cfg), cfg)
+    codes = torch.randint(0, 2 ** bits, (kh, kw, c_out, c_in), generator=gen,
                           device=dev)
     fmt = samd.SAMDFormat(bits, cfg.lane_width, signed=False)
     packed = samd.pack(codes, fmt).movedim(-1, 2).contiguous()
@@ -414,31 +434,121 @@ def _conv_weights(dev, gen, bits, spacer, c_in, c_out, signed):
     return packed, scale, cfg
 
 
+def _conv_launcher(x, packed, cfg, padding):
+    c_in, h, w = x.shape
+    kh, kw, cw, c_out = packed.shape
+    return sc.conv2d_plan(c_in, cw, h, w, kh, kw, c_out, padding,
+                          cfg.values_per_word,
+                          x.dtype == torch.bfloat16).launcher
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("bits,spacer", [(2, "temporary"), (4, "temporary"),
-                                         (4, "permanent"), (8, "temporary")])
-@pytest.mark.parametrize("c_in,c_out,h,w,padding", [(3, 64, 20, 37, 1),
-                                                    (37, 70, 9, 33, 1),
-                                                    (19, 8, 5, 6, 0)])
-def test_samd_conv2d_kernel_matches_plain(cuda, c_in, c_out, h, w, padding,
-                                          bits, spacer, signed, dtype):
-    """conv1_1's C_in = 3 (13 empty lanes of a 2-bit word), ragged C_in,
-    C_out and OW against the kernel's 64 x 32 tiles, padding 0 and 1,
-    signed and unsigned lanes, f32 and bf16 x."""
+                                         (4, "permanent"), (8, "temporary"),
+                                         (9, "temporary"), (10, "permanent"),
+                                         (12, "temporary"), (16, "temporary"),
+                                         (16, "permanent")])
+@pytest.mark.parametrize("c_in,c_out,h,w,kh,kw,padding", [
+    (3, 64, 20, 37, 3, 3, 1), (37, 70, 9, 33, 3, 3, 1),
+    (19, 8, 5, 6, 3, 3, 0), (300, 70, 7, 7, 3, 3, 1),
+    (37, 70, 9, 12, 1, 1, 0), (37, 70, 9, 12, 5, 3, 1)])
+def test_samd_conv2d_kernel_matches_plain(cuda, c_in, c_out, h, w, kh, kw,
+                                          padding, bits, spacer, signed,
+                                          dtype):
+    """conv1_1's C_in = 3 (the im2col launcher), ragged C_in, C_out and OW
+    against the kernel's 128 x 64 tiles, a deep small layer whose K is
+    split over a cluster (C_in 300 at 7 x 7), 1x1 and 5x3 kernels,
+    padding 0 and 1, signed and unsigned lanes up to 16 bits (codes that
+    bf16 cannot hold: rounded as the reference for bf16 x, split into two
+    exact parts for f32 x), f32 and bf16 x; exactly the launcher of
+    ``conv2d_plan`` runs."""
     gen = torch.Generator(device=cuda).manual_seed(c_in + bits + signed)
     packed, scale, cfg = _conv_weights(cuda, gen, bits, spacer, c_in, c_out,
-                                       signed)
+                                       signed, kh, kw)
     x = torch.randn(c_in, h, w, generator=gen, device=cuda).to(dtype)
     before = ops.launch_counts()
     got = ops.samd_conv2d(x, packed, scale, cfg, padding=padding,
                           signed=signed)
-    assert _moved(before, ops.launch_counts()) == {"samd_conv2d_launch"}
+    assert _moved(before, ops.launch_counts()) == {
+        _conv_launcher(x, packed, cfg, padding)}
     want = sc.samd_conv2d_plain(x, packed, scale, cfg, padding=padding,
                                 signed=signed)
     assert got.dtype == dtype and got.shape == want.shape
     _close(got, want, CONV_F32_TOL if dtype == torch.float32 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,h,w", [(512, 512, 14, 14),
+                                            (256, 512, 28, 28),
+                                            (300, 70, 7, 7),
+                                            (64, 128, 112, 112)])
+def test_samd_conv2d_kernel_is_deterministic(cuda, c_in, c_out, h, w, dtype):
+    """Two calls on the same inputs give bit-identical outputs, with K
+    split over a cluster (conv5, conv4 and the deep small layer: partials
+    summed in rank order) and without (conv2_1)."""
+    gen = torch.Generator(device=cuda).manual_seed(c_in + h)
+    packed, scale, cfg = _conv_weights(cuda, gen, 4, "temporary", c_in,
+                                       c_out, True)
+    x = torch.randn(c_in, h, w, generator=gen, device=cuda).to(dtype)
+    a = ops.samd_conv2d(x, packed, scale, cfg)
+    b = ops.samd_conv2d(x, packed, scale, cfg)
+    assert torch.equal(a, b)
+    _close(a, sc.samd_conv2d_plain(x, packed, scale, cfg),
+           CONV_F32_TOL if dtype == torch.float32 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,bits,surplus", [(32, 4, 1), (64, 4, 1),
+                                               (37, 4, 3), (3, 4, 1),
+                                               (16, 16, 1)])
+def test_samd_conv2d_kernel_takes_surplus_words(cuda, c_in, bits, surplus,
+                                                dtype):
+    """Packed weights with more words than C_in needs (random words past
+    C_in, which meet zero channels): C_in 64 at 4 bits with 9 words adds a
+    K-step per tap with f32 x, C_in 32 with 5 words moves to the im2col
+    launcher, and 16-bit codes take them too; the kernel equals the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(c_in + surplus)
+    packed, scale, cfg = _conv_weights(cuda, gen, bits, "temporary", c_in,
+                                       70, True)
+    extra = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 3, surplus, 70),
+                          generator=gen, device=cuda, dtype=torch.int32)
+    packed = torch.cat([packed, extra], dim=2)
+    x = torch.randn(c_in, 9, 12, generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()
+    got = ops.samd_conv2d(x, packed, scale, cfg)
+    assert _moved(before, ops.launch_counts()) == {
+        _conv_launcher(x, packed, cfg, 1)}
+    _close(got, sc.samd_conv2d_plain(x, packed, scale, cfg),
+           CONV_F32_TOL if dtype == torch.float32 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forge", ["step_k", "steps", "splits"])
+def test_samd_conv2d_kernel_refuses_a_plan_not_its_own(cuda, forge):
+    """The kernel takes the plan's K-step only where it is the step it was
+    compiled for, a step count only where it covers every word of every
+    tap, and splits only where they divide the steps: anything else is a
+    launch error, not a wrong result."""
+    cfg = QuantConfig(bits=4)
+    packed, scale = pack_conv_weights(torch.randn(3, 3, 37, 70, device=cuda),
+                                      cfg)
+    x = torch.randn(37, 9, 12, device=cuda)
+    plan, _, _ws, args = sc.conv2d_launch_args(x, packed, scale, cfg)
+    assert plan.steps == 18  # two steps of 4 words a tap for 5 words
+    args = list(args)
+    if forge == "step_k":
+        args[-3] = 2 * plan.step_k
+    elif forge == "steps":
+        args[-2] = plan.steps - 9  # one step a tap: 4 of its 5 words
+    else:
+        args[-4] = next(d for d in range(2, 9) if plan.steps % d)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sc.KERNEL.launch(plan.launcher, *args)
 
 
 @pytest.mark.cuda

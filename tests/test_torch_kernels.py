@@ -98,6 +98,30 @@ def test_samd_matmul_plain_bf16_and_lead_dims():
                                atol=tol)
 
 
+@pytest.mark.parametrize("bits,signed", [(10, True), (12, True), (16, True),
+                                         (9, False), (12, False),
+                                         (16, False)])
+def test_samd_matmul_plain_bf16_wide_codes_match_reference(bits, signed):
+    """bf16 x with codes that bf16 cannot hold exactly (signed over 9
+    bits, unsigned over 8): the reference casts the codes to x's dtype
+    (``codes.astype(x.dtype)``), as the port's CUDA kernel does, and so
+    must the plain version; within 1e-3 of the output scale of the xla
+    lowering."""
+    x, words, scale, jcfg = _matmul_case(8, 256, 64, bits, "temporary",
+                                         signed, seed=bits + 7 * signed)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jops.samd_matmul(
+        xb, jnp.asarray(words), jnp.asarray(scale), 256, jcfg,
+        signed=signed, backend="xla", verify=False), np.float32)
+    got = ops.samd_matmul(
+        torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16),
+        _to_torch_words(words), torch.from_numpy(scale), 256,
+        QuantConfig(bits=bits), signed=signed)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 1e-3 * np.abs(want).max(), err
+
+
 def _paged_case(b, hkv, g, dh, ps, n_pp, packed, dtype, seed):
     """Random pools and a ragged page table: each slot owns a prefix of
     distinct pages with -1 holes after it, and slot 1 owns nothing (all
@@ -304,7 +328,7 @@ def test_launch_counts_are_per_launcher():
         "paged_decode_attention_launch",
         "paged_decode_ring_attention_launch",
         "paged_verify_attention_launch", "samd_conv2d_launch",
-        "samd_conv_chunks_launch"}
+        "samd_conv2d_im2col_launch", "samd_conv_chunks_launch"}
     k = pa.KERNEL
     saved = dict(k.launches)
     try:
