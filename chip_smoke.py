@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --old-matmul OLD/samd_matmul.cu   # + old vs new
     python3 chip_smoke.py --old-conv OLD/samd_conv.cu       # the same, conv
+    python3 chip_smoke.py --old-attention OLD/paged_attention.cu  # attention
 
 Phases, any failure exits non-zero:
   (a) build every CUDA kernel of ``src/repro_torch/kernels/csrc`` with nvcc
@@ -52,9 +53,19 @@ Phases, any failure exits non-zero:
       dense bf16 ``torch.matmul`` alike (``ms``, ``library_ms``), beside
       the host-paced times and the wrapper's host time per call; with
       ``--old-matmul SOURCE`` also a previous ``samd_matmul.cu``, in
-      turns (old, new, new, old) on the same weights; (d') the verify
-      kernel at run A's and run B's shapes and the ring fold at the
-      draft's;
+      turns (old, new, new, old) on the same weights. Decode attention
+      at (c)'s shapes and, in (d'), the verify kernel at run A's and run
+      B's shapes and the ring fold at the draft's are device times the
+      same way (24 layers' launches in a CUDA graph; SDPA over the KV
+      gathered beforehand alike), with the host-paced times and the
+      wrapper's host time per call (also inside a ``torch.cuda.device``
+      context, as the wrapper entered one on every call before) beside;
+      with ``--old-attention SOURCE`` also a previous
+      ``paged_attention.cu`` (three launchers without the split
+      arguments), in turns on the same pools. Two kernel-only rows at
+      qwen3-14b's attention shape (Hkv = 8, G = 5, dh = 128, 40 layers of
+      seeded pools at the same positions): decode, and the verify at
+      S = 3;
   (f) run the paper's VGG-B convolutions: all 10 conv layers at their
       published shapes (3x3, padding 1, seeded f32 x and weights) at 2, 4
       and 8 bits, and conv3_1 at 4 bits with bf16 x, through
@@ -322,12 +333,14 @@ def check_paged_attention(dev, gen):
             args, kw = paged_case(dev, gen, 8, hkv, g, 64, 16, 32, packed,
                                   lens)
             got = ops.paged_decode_attention(*args, **kw)
+            if not torch.equal(got, ops.paged_decode_attention(*args, **kw)):
+                raise AssertionError("two decode calls differ")
             want = pa.paged_decode_attention_plain(*args, **kw)
             errs[fmt, g] = max_err(got, want, BF16_TOL)
             if not (got[1] == 0).all():
                 raise AssertionError("an empty slot must emit zeros")
-    log("  paged_decode_attention: empty slot exact zeros; max |kernel - "
-        "plain| per (KV, G) = " + json.dumps(
+    log("  paged_decode_attention: empty slot exact zeros, two calls "
+        "bit-identical; max |kernel - plain| per (KV, G) = " + json.dumps(
             {f"{f} G={g}": e for (f, g), e in errs.items()}))
     return errs
 
@@ -384,6 +397,8 @@ def check_verify_attention(dev, gen):
                                    packed, bases, specs)
             args[4][3] = -1  # slot 3: pages, but no row in budget
             got = ops.paged_verify_attention(*args, **kw)
+            if not torch.equal(got, ops.paged_verify_attention(*args, **kw)):
+                raise AssertionError("two verify calls differ")
             want = pa.paged_verify_attention_plain(*args, **kw)
             errs[fmt, s, g] = max_err(got, want, BF16_TOL)
             dead = args[4] < 0
@@ -392,7 +407,8 @@ def check_verify_attention(dev, gen):
             if not (got[~dead] != 0).any(dim=-1).all():
                 raise AssertionError("a live row came out all zero")
     log("  paged_verify_attention: rows at -1 and the empty slot exact "
-        "zeros; max |kernel - plain| per (KV, S, G) = "
+        "zeros, two calls bit-identical; max |kernel - plain| per (KV, S, "
+        "G) = "
         + json.dumps({f"{f} S={s} G={g}": e for (f, s, g), e in
                       errs.items()}))
     return errs
@@ -418,6 +434,9 @@ def check_ring_fold(dev, gen):
                                       packed, lens)
                 ring = ring_case(dev, gen, 8, r, hkv, 64)
                 got = ops.paged_decode_attention(*args, **kw, **ring)
+                if not torch.equal(
+                        got, ops.paged_decode_attention(*args, **kw, **ring)):
+                    raise AssertionError("two ring-fold calls differ")
                 want = pa.paged_decode_attention_plain(*args, **kw, **ring)
                 errs[fmt, r, g] = max_err(got, want, BF16_TOL)
                 pool_only = ops.paged_decode_attention(*args, **kw)
@@ -430,9 +449,9 @@ def check_ring_fold(dev, gen):
                         == 0).all():
                     raise AssertionError("no page and no ring entry must "
                                          "emit zeros")
-    log("  paged_decode_ring_attention: max |kernel - plain| per (KV, R, "
-        "G) = " + json.dumps({f"{f} R={r} G={g}": e for (f, r, g), e in
-                              errs.items()}))
+    log("  paged_decode_ring_attention: two calls bit-identical; max "
+        "|kernel - plain| per (KV, R, G) = " + json.dumps(
+            {f"{f} R={r} G={g}": e for (f, r, g), e in errs.items()}))
     return errs
 
 
@@ -660,10 +679,10 @@ def graph_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def old_launcher(source, symbol, n_ints):
+def old_launcher(source, symbol, argtypes):
     """``symbol`` of a previous kernel source (e.g. from a git archive of
     the parent commit), built with the port's nvcc flags and bound
-    through ctypes as (4 pointers, ``n_ints`` ints, stream) -> int."""
+    through ctypes with ``argtypes`` -> int."""
     import ctypes
     import hashlib
 
@@ -678,10 +697,17 @@ def old_launcher(source, symbol, n_ints):
                         str(src)], check=True, capture_output=True,
                        text=True, timeout=600)
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _args(n_ptrs, n_ints, tail=()):
+    """ctypes argument types: pointers, ints, ``tail``, then the stream."""
+    import ctypes
+
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + list(tail) + [ctypes.c_void_p])
 
 
 class OldMatmul:
@@ -690,7 +716,7 @@ class OldMatmul:
     lane_width, vpw, signed, stream)``), for a comparison on one card."""
 
     def __init__(self, source):
-        self.fn = old_launcher(source, "samd_matmul_launch", 7)
+        self.fn = old_launcher(source, "samd_matmul_launch", _args(4, 7))
 
     def __call__(self, x, packed, scale, k, cfg):
         from repro_torch.kernels._build import ptr, stream_handle
@@ -703,6 +729,61 @@ class OldMatmul:
         if err:
             raise RuntimeError(f"old samd_matmul launch failed ({err})")
         return out
+
+
+class OldAttention:
+    """A previous ``paged_attention.cu`` whose three launchers take no
+    split arguments (``paged_decode_attention_launch(q, k_pages, v_pages,
+    k_scale, v_scale, page_table, q_pos, out, B, n_pp, ps, hkv, g, dh,
+    sm_scale, packed, stream)``, the ring launcher with extra_k, extra_v,
+    extra_pos before ``out`` and R after ``dh``, the verify launcher with
+    S after ``dh``), for a comparison on one card."""
+
+    def __init__(self, source):
+        import ctypes
+
+        f = [ctypes.c_float, ctypes.c_int]
+        self.fns = {DECODE: old_launcher(source, DECODE, _args(8, 6, f)),
+                    RING: old_launcher(source, RING, _args(11, 7, f)),
+                    VERIFY: old_launcher(source, VERIFY, _args(8, 7, f))}
+
+    def _run(self, fn, q, out, args, packed):
+        from repro_torch.kernels._build import stream_handle
+
+        err = self.fns[fn](*args, 1.0 / (q.shape[-1] ** 0.5), int(packed),
+                           stream_handle(q))
+        if err:
+            raise RuntimeError(f"old {fn} launch failed ({err})")
+        return out
+
+    def decode(self, q, kp, vp, pt, pos, k_scale=None, v_scale=None,
+               extra_k=None, extra_v=None, extra_pos=None):
+        from repro_torch.kernels._build import ptr
+
+        b, h, dh = q.shape
+        hkv, ps = kp.shape[2], kp.shape[1]
+        out = torch.empty_like(q)
+        head = [ptr(q), ptr(kp), ptr(vp), ptr(k_scale), ptr(v_scale),
+                ptr(pt), ptr(pos)]
+        dims = [b, pt.shape[1], ps, hkv, h // hkv, dh]
+        if extra_k is None:
+            return self._run(DECODE, q, out, head + [ptr(out)] + dims,
+                             k_scale is not None)
+        ring = [ptr(extra_k), ptr(extra_v), ptr(extra_pos), ptr(out)]
+        return self._run(RING, q, out,
+                         head + ring + dims + [extra_k.shape[1]],
+                         k_scale is not None)
+
+    def verify(self, q, kp, vp, pt, q_pos, k_scale=None, v_scale=None):
+        from repro_torch.kernels._build import ptr
+
+        b, sq, h, dh = q.shape
+        hkv, ps = kp.shape[2], kp.shape[1]
+        out = torch.empty_like(q)
+        args = [ptr(q), ptr(kp), ptr(vp), ptr(k_scale), ptr(v_scale),
+                ptr(pt), ptr(q_pos), ptr(out), b, pt.shape[1], ps, hkv,
+                h // hkv, dh, sq]
+        return self._run(VERIFY, q, out, args, k_scale is not None)
 
 
 def time_samd_matmul(dev, timer, params, label, m, old=None):
@@ -805,27 +886,6 @@ def fill_pools(eng, args, kw):
             lay[key][: t.shape[0]].copy_(t)
 
 
-def dense_kv(eng, pt):
-    """Per layer, the pages of ``pt`` gathered beforehand into dense bf16
-    K and V [B, Hkv, n_pp * ps, dh]: the library yardstick's input."""
-    from repro_torch.quant.packing import unpack_int8_lanes
-
-    cfg, ps = eng.cfg, eng.page_size
-    b, n_pp = pt.shape
-    safe = pt.clamp(min=0).long()
-    dense = []
-    for lay in eng.cache["layers"]:
-        kk, vv = lay["k"][safe], lay["v"][safe]
-        if "k_scale" in lay:
-            kk = unpack_int8_lanes(kk) * lay["k_scale"][safe][..., None]
-            vv = unpack_int8_lanes(vv) * lay["v_scale"][safe][..., None]
-        dense.append(tuple(
-            t.reshape(b, n_pp * ps, cfg.n_kv_heads, cfg.head_dim)
-            .transpose(1, 2).to(torch.bfloat16).contiguous()
-            for t in (kk, vv)))
-    return dense
-
-
 def page_mask(pt, ps, q_pos):
     """[B, Sq, n_pp * ps]: key offset <= the query's position, on an
     allocated page (q_pos [B, Sq])."""
@@ -850,14 +910,64 @@ def timing_row(label, kern, plain, lib, n_bytes, n_ops,
     return row
 
 
-def mid_positions(eng):
-    """The workload's first max_batch requests halfway through their
+def mid_positions(n):
+    """The workload's first ``n`` requests halfway through their
     generation: the positions a decode tick sees mid-run."""
-    return [int(len(r.prompt)) + MAX_TOKENS // 2
-            for r in workload(1)[:eng.max_batch]]
+    return [int(len(r.prompt)) + MAX_TOKENS // 2 for r in workload(1)[:n]]
 
 
-def time_paged_attention(eng, dev, timer, packed, gen):
+def attention_times(dev, timer, nl, kern, plain, lib, old=None,
+                    check=None, host_call=None):
+    """Per-launch times of an attention launcher over ``nl`` layers:
+    ``kern``, ``plain``, ``lib`` (SDPA) and ``old`` (a previous kernel)
+    each run the ``nl`` layers' calls once. Device time (the layers'
+    launches captured in a CUDA graph and replayed) of the kernel, of
+    ``old`` in turns (old, new, new, old) after ``check()`` has held it
+    to the plain version, and of the yardstick; host-paced times (the
+    Timer, which also pays each call's host dispatch) of the kernel and
+    the yardstick; the plain version; and, with ``host_call``, the
+    wrapper's host time per call (1000 calls, no sync), plain and inside
+    a ``torch.cuda.device`` context as the wrapper entered one on every
+    call before."""
+    t = dict(ms=[], old_ms=[])
+    if old is not None:
+        check()
+        for who, fn in (("old_ms", old), ("ms", kern), ("ms", kern),
+                        ("old_ms", old)):
+            t[who].append(graph_ms(fn) / nl)
+    else:
+        t["ms"].append(graph_ms(kern) / nl)
+    out = dict(ms=float(np.mean(t["ms"])), library_ms=graph_ms(lib) / nl,
+               host_paced_ms=timer(kern) / nl,
+               library_host_paced_ms=timer(lib) / nl,
+               plain_ms=timer(plain, iters=3) / nl)
+    if old is not None:
+        out["old_ms"] = float(np.mean(t["old_ms"]))
+    if host_call is not None:
+        for key, ctx in (("host_us_per_call", False),
+                         ("host_us_per_call_device_ctx", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                if ctx:
+                    with torch.cuda.device(dev):
+                        host_call()
+                else:
+                    host_call()
+            out[key] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+    return out
+
+
+def sdpa_layers(q, dense, mask, g):
+    """SDPA of ``q`` [B, H, Sq, dh] over each layer's dense K/V
+    [B, Hkv, L, dh]: the library yardstick, one call a layer."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: [sdpa(q, kk, vv, attn_mask=mask, enable_gqa=g > 1)
+                    for kk, vv in dense]
+
+
+def time_paged_attention(eng, dev, timer, packed, gen, old=None):
     """Decode attention of 8 slots at the workload's mid-run positions over
     every layer's pools (page table width 32, as the engine's pow2 table
     takes it for positions up to 288 + 32)."""
@@ -867,36 +977,41 @@ def time_paged_attention(eng, dev, timer, packed, gen):
     cfg, ps = eng.cfg, eng.page_size
     b, n_pp = eng.max_batch, 32
     args, kw = paged_case(dev, gen, b, cfg.n_kv_heads, 1, cfg.head_dim, ps,
-                          n_pp, packed, mid_positions(eng))
+                          n_pp, packed, mid_positions(b))
     q, _, _, pt, pos = args
-    fill_pools(eng, args, kw)
-    layers = eng.cache["layers"]
+    layers = engine_pools(eng)(args, kw)
 
     def attn(fn):
-        return lambda: [fn(q, lay["k"], lay["v"], pt, pos,
-                           k_scale=lay.get("k_scale"),
-                           v_scale=lay.get("v_scale")) for lay in layers]
+        return lambda: [fn(q, k, v, pt, pos, **sc) for k, v, sc in layers]
 
-    nl = len(layers)
-    kern = timer(attn(ops.paged_decode_attention)) / nl
-    plain = timer(attn(pa.paged_decode_attention_plain), iters=3) / nl
     # library yardstick: SDPA over a dense KV gathered beforehand
-    dense = dense_kv(eng, pt)
-    mask = page_mask(pt, ps, pos[:, None])[:, None]
-    qd = q[:, :, None]
-    lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
-        qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
+    dense = dense_layers(layers, pt, cfg.n_kv_heads, cfg.head_dim)
+    k0, v0, scales = layers[0]
+    first = (q, k0, v0, pt, pos)
+    t = attention_times(
+        dev, timer, len(layers), attn(ops.paged_decode_attention),
+        attn(pa.paged_decode_attention_plain),
+        sdpa_layers(q[:, :, None], dense, page_mask(pt, ps, pos[:, None])
+                    [:, None], 1),
+        old and attn(old.decode),
+        lambda: max_err(old.decode(*first, **scales),
+                        pa.paged_decode_attention_plain(*first, **scales),
+                        BF16_TOL),
+        lambda: ops.paged_decode_attention(*first, **scales))
     del dense
     tokens = int((pos + 1).sum().item())  # keys the slots' queries read
     n_bytes = (tokens * kv_bytes_per_token(cfg, packed) + 2 * q.numel() * 2
                + pt.numel() * 4 + pos.numel() * 4)
     n_ops = 4 * tokens * cfg.n_heads * cfg.head_dim
+    plan = pa.attention_plan(b, cfg.n_kv_heads, 1, cfg.head_dim, n_pp, ps,
+                             1, 0, packed)
     return timing_row(
-        f"paged_decode_attention ({'int8' if packed else 'bf16'} KV)", kern,
-        plain, lib, n_bytes, n_ops, keys=tokens)
+        f"paged_decode_attention ({'int8' if packed else 'bf16'} KV)",
+        t.pop("ms"), t.pop("plain_ms"), t.pop("library_ms"), n_bytes, n_ops,
+        keys=tokens, splits=plan.splits, **t)
 
 
-def time_ring_fold(eng, dev, timer, gen, label):
+def time_ring_fold(eng, dev, timer, gen, label, old=None):
     """The draft's attention at the workload's mid-run positions over
     every layer of ``eng``'s pools: the pool read to ``pos - 1`` and
     the full ring of K entries (the draft's last step) folded in."""
@@ -906,85 +1021,209 @@ def time_ring_fold(eng, dev, timer, gen, label):
     cfg, ps, r = eng.cfg, eng.page_size, eng.speculative
     b, n_pp = eng.max_batch, 32
     packed = eng._kv_bits == 8
-    pos = mid_positions(eng)
+    pos = mid_positions(b)
     args, kw = paged_case(dev, gen, b, cfg.n_kv_heads, 1, cfg.head_dim, ps,
                           n_pp, packed, [p - 1 for p in pos])
     q, _, _, pt, bound = args
-    fill_pools(eng, args, kw)
+    layers = engine_pools(eng)(args, kw)
     kv = torch.randn((2, b, r, cfg.n_kv_heads, cfg.head_dim), generator=gen,
                      device=dev).to(torch.bfloat16)
     ring = dict(extra_k=kv[0].contiguous(), extra_v=kv[1].contiguous(),
                 extra_pos=(torch.tensor(pos, device=dev)[:, None]
                            + torch.arange(r, device=dev)).int())
-    layers = eng.cache["layers"]
 
     def attn(fn):
-        return lambda: [fn(q, lay["k"], lay["v"], pt, bound,
-                           k_scale=lay.get("k_scale"),
-                           v_scale=lay.get("v_scale"), **ring)
-                        for lay in layers]
+        return lambda: [fn(q, k, v, pt, bound, **sc, **ring)
+                        for k, v, sc in layers]
 
-    nl = len(layers)
-    kern = timer(attn(ops.paged_decode_attention)) / nl
-    plain = timer(attn(pa.paged_decode_attention_plain), iters=3) / nl
     # library yardstick: SDPA over the gathered pool and the ring, dense
     dense = [tuple(torch.cat([t, e.transpose(1, 2)], dim=2)
                    for t, e in zip(kv_l, (ring["extra_k"], ring["extra_v"])))
-             for kv_l in dense_kv(eng, pt)]
+             for kv_l in dense_layers(layers, pt, cfg.n_kv_heads,
+                                      cfg.head_dim)]
     mask = torch.cat([page_mask(pt, ps, bound[:, None]),
                       torch.ones((b, 1, r), dtype=torch.bool, device=dev)],
                      dim=2)[:, None]
-    qd = q[:, :, None]
-    lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
-        qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
+    k0, v0, sc0 = layers[0]
+    first = (q, k0, v0, pt, bound)
+    extra = dict(sc0, **ring)
+    t = attention_times(
+        dev, timer, len(layers), attn(ops.paged_decode_attention),
+        attn(pa.paged_decode_attention_plain),
+        sdpa_layers(q[:, :, None], dense, mask, 1),
+        old and attn(old.decode),
+        lambda: max_err(old.decode(*first, **extra),
+                        pa.paged_decode_attention_plain(*first, **extra),
+                        BF16_TOL),
+        lambda: ops.paged_decode_attention(*first, **extra))
     del dense
     keys = int((bound + 1).sum().item())
     n_bytes = (keys * kv_bytes_per_token(cfg, packed)
                + ring["extra_k"].numel() * 4 + ring["extra_pos"].numel() * 4
                + 2 * q.numel() * 2 + pt.numel() * 4 + bound.numel() * 4)
     n_ops = 4 * (keys + b * r) * cfg.n_heads * cfg.head_dim
-    return timing_row(f"paged_decode_ring_attention ({label})", kern, plain,
-                      lib, n_bytes, n_ops, keys=keys + b * r)
+    plan = pa.attention_plan(b, cfg.n_kv_heads, 1, cfg.head_dim, n_pp, ps,
+                             1, r, packed)
+    return timing_row(f"paged_decode_ring_attention ({label})", t.pop("ms"),
+                      t.pop("plain_ms"), t.pop("library_ms"), n_bytes, n_ops,
+                      keys=keys + b * r, splits=plan.splits, **t)
 
 
-def time_verify(eng, dev, timer, gen, label):
-    """The verify's attention of 8 slots at the workload's mid-run
-    positions, S = K + 1 queries each at full draft budget, over every
-    layer of ``eng``'s pools (page table width 32)."""
+def time_verify_at(dev, timer, gen, label, fill, b, s, hkv, g, dh, ps,
+                   packed, old=None, host=True):
+    """The verify's attention of ``b`` slots at the workload's mid-run
+    positions, S = ``s`` queries each at full draft budget, over the
+    layers' pools that ``fill(args, kw)`` returns as (k, v, scales)
+    filled from the case (page table width 32)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
-    cfg, ps, s = eng.cfg, eng.page_size, eng.speculative + 1
-    b, n_pp = eng.max_batch, 32
-    packed = eng._kv_bits == 8
-    args, kw = verify_case(dev, gen, b, s, cfg.n_kv_heads, 1, cfg.head_dim,
-                           ps, n_pp, packed, mid_positions(eng), [s - 1] * b)
+    n_pp = 32
+    args, kw = verify_case(dev, gen, b, s, hkv, g, dh, ps, n_pp, packed,
+                           mid_positions(b), [s - 1] * b)
     q, _, _, pt, q_pos = args
-    fill_pools(eng, args, kw)
-    layers = eng.cache["layers"]
+    layers = fill(args, kw)
 
     def attn(fn):
-        return lambda: [fn(q, lay["k"], lay["v"], pt, q_pos,
-                           k_scale=lay.get("k_scale"),
-                           v_scale=lay.get("v_scale")) for lay in layers]
+        return lambda: [fn(q, k, v, pt, q_pos, **sc) for k, v, sc in layers]
 
-    nl = len(layers)
-    kern = timer(attn(ops.paged_verify_attention)) / nl
-    plain = timer(attn(pa.paged_verify_attention_plain), iters=3) / nl
-    # library yardstick: SDPA over a dense KV gathered beforehand, with
-    # an [S, L] causal mask per slot
-    dense = dense_kv(eng, pt)
-    mask = page_mask(pt, ps, q_pos)[:, None]
-    qd = q.transpose(1, 2)
-    lib = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
-        qd, kk, vv, attn_mask=mask) for kk, vv in dense]) / nl
+    dense = dense_layers(layers, pt, hkv, dh)
+    k0, v0, sc0 = layers[0]
+    first = (q, k0, v0, pt, q_pos)
+    t = attention_times(
+        dev, timer, len(layers), attn(ops.paged_verify_attention),
+        attn(pa.paged_verify_attention_plain),
+        sdpa_layers(q.transpose(1, 2), dense,
+                    page_mask(pt, ps, q_pos)[:, None], g),
+        old and attn(old.verify),
+        lambda: max_err(old.verify(*first, **sc0),
+                        pa.paged_verify_attention_plain(*first, **sc0),
+                        BF16_TOL),
+        (lambda: ops.paged_verify_attention(*first, **sc0)) if host else None)
     del dense
     keys = int((q_pos.amax(dim=1) + 1).sum().item())  # pages read per slot
-    n_bytes = (keys * kv_bytes_per_token(cfg, packed) + 2 * q.numel() * 2
-               + pt.numel() * 4 + q_pos.numel() * 4)
-    n_ops = 4 * s * keys * cfg.n_heads * cfg.head_dim
-    return timing_row(f"paged_verify_attention ({label})", kern, plain, lib,
-                      n_bytes, n_ops, keys=keys, s=s)
+    per_tok = hkv * dh
+    kv_bytes = 2 * (per_tok + 4 * hkv if packed else 2 * per_tok)
+    n_bytes = (keys * kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4
+               + q_pos.numel() * 4)
+    n_ops = 4 * s * keys * hkv * g * dh
+    plan = pa.attention_plan(b, hkv, s * g, dh, n_pp, ps, s, 0, packed)
+    return timing_row(f"paged_verify_attention ({label})", t.pop("ms"),
+                      t.pop("plain_ms"), t.pop("library_ms"), n_bytes, n_ops,
+                      keys=keys, s=s, splits=plan.splits, **t)
+
+
+def engine_pools(eng):
+    """The layers' pools of ``eng`` as (k, v, scales), filled with a
+    case's values."""
+    def fill(args, kw):
+        fill_pools(eng, args, kw)
+        return [(lay["k"], lay["v"],
+                 {n: lay[n] for n in ("k_scale", "v_scale") if n in lay})
+                for lay in eng.cache["layers"]]
+    return fill
+
+
+def seeded_pools(n_layers, dev, gen):
+    """``n_layers`` pools of their own, each with the case's table shape
+    and fresh seeded values (a kernel-only row: no engine)."""
+    def fill(args, kw):
+        from repro_torch.quant.packing import pack_int8_lanes
+
+        kp = args[1]
+        out = []
+        for _ in range(n_layers):
+            if kw:
+                vals = torch.randint(-127, 128, (2,) + tuple(kp.shape[:3])
+                                     + (kp.shape[3] * 4,), generator=gen,
+                                     device=dev).to(torch.int8)
+                sc = {n: torch.rand(kp.shape[:3], generator=gen, device=dev)
+                      * 0.02 for n in ("k_scale", "v_scale")}
+                out.append((pack_int8_lanes(vals[0]), pack_int8_lanes(vals[1]),
+                            sc))
+            else:
+                kv = torch.randn((2,) + tuple(kp.shape), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                out.append((kv[0], kv[1], {}))
+        return out
+    return fill
+
+
+def dense_layers(layers, pt, hkv, dh):
+    """Per layer, the pages of ``pt`` gathered beforehand into dense bf16
+    K and V [B, Hkv, n_pp * ps, dh]: the library yardstick's input."""
+    from repro_torch.quant.packing import unpack_int8_lanes
+
+    b, n_pp = pt.shape
+    safe = pt.clamp(min=0).long()
+    dense = []
+    for k, v, sc in layers:
+        kk, vv = k[safe], v[safe]
+        if sc:
+            kk = unpack_int8_lanes(kk) * sc["k_scale"][safe][..., None]
+            vv = unpack_int8_lanes(vv) * sc["v_scale"][safe][..., None]
+        ps = k.shape[1]
+        dense.append(tuple(
+            t.reshape(b, n_pp * ps, hkv, dh).transpose(1, 2)
+            .to(torch.bfloat16).contiguous() for t in (kk, vv)))
+    return dense
+
+
+def time_verify(eng, dev, timer, gen, label, old=None):
+    """The verify's attention at run ``label``'s shapes over every layer
+    of ``eng``'s pools."""
+    cfg = eng.cfg
+    return time_verify_at(dev, timer, gen, label, engine_pools(eng),
+                          eng.max_batch, eng.speculative + 1,
+                          cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                          cfg.head_dim, eng.page_size, eng._kv_bits == 8,
+                          old)
+
+
+def time_qwen3_attention(dev, timer, gen, old=None):
+    """Kernel-only rows at qwen3-14b's attention shape (Hkv = 8, G = 5,
+    dh = 128, bf16 KV, 40 layers of seeded pools; not a serving run):
+    decode of 8 slots at the workload's mid-run positions, and the
+    verify at S = 3 at the same positions."""
+    from repro_torch.configs.archs import QWEN3_14B as cfg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    hkv, dh, ps, b, n_pp = cfg.n_kv_heads, cfg.head_dim, 16, 8, 32
+    g = cfg.n_heads // hkv
+    args, kw = paged_case(dev, gen, b, hkv, g, dh, ps, n_pp, False,
+                          mid_positions(b))
+    q, _, _, pt, pos = args
+    layers = seeded_pools(cfg.n_layers, dev, gen)(args, kw)
+
+    def attn(fn):
+        return lambda: [fn(q, k, v, pt, pos) for k, v, _ in layers]
+
+    dense = dense_layers(layers, pt, hkv, dh)
+    first = (q, layers[0][0], layers[0][1], pt, pos)
+    t = attention_times(
+        dev, timer, len(layers), attn(ops.paged_decode_attention),
+        attn(pa.paged_decode_attention_plain),
+        sdpa_layers(q[:, :, None], dense, page_mask(pt, ps, pos[:, None])
+                    [:, None], g),
+        old and attn(old.decode),
+        lambda: max_err(old.decode(*first),
+                        pa.paged_decode_attention_plain(*first), BF16_TOL))
+    del dense, layers
+    tokens = int((pos + 1).sum().item())
+    n_bytes = (tokens * 2 * 2 * hkv * dh + 2 * q.numel() * 2
+               + pt.numel() * 4 + pos.numel() * 4)
+    rows = [timing_row(
+        "paged_decode_attention (qwen3-14b shape, bf16 KV, kernel only)",
+        t.pop("ms"), t.pop("plain_ms"), t.pop("library_ms"), n_bytes,
+        4 * tokens * hkv * g * dh, keys=tokens,
+        splits=pa.attention_plan(b, hkv, g, dh, n_pp, ps, 1, 0,
+                                 False).splits, **t)]
+    rows.append(time_verify_at(
+        dev, timer, gen, "qwen3-14b shape, bf16 KV, S=3, kernel only",
+        seeded_pools(cfg.n_layers, dev, gen), b, 3, hkv, g, dh, ps, False,
+        old, host=False))
+    return rows
 
 
 # -- (f) the VGG-B convolutions ----------------------------------------------
@@ -1052,7 +1291,7 @@ class OldConv:
     ``bcw`` words of channels per step), for a comparison on one card."""
 
     def __init__(self, source):
-        self.fn = old_launcher(source, "samd_conv2d_launch", 14)
+        self.fn = old_launcher(source, "samd_conv2d_launch", _args(4, 14))
 
     def __call__(self, x, packed, scale, cfg, padding=1):
         from repro_torch.kernels._build import ptr, stream_handle
@@ -1282,7 +1521,7 @@ def kernel_entry(name, source, replaces, launches, err, t, shape):
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
              "library_ms": t["library_ms"], "shape": shape}
     for key in ("old_ms", "host_paced_ms", "library_host_paced_ms",
-                "host_us_per_call"):
+                "host_us_per_call", "host_us_per_call_device_ctx"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -1322,6 +1561,10 @@ def main() -> int:
                     help="a previous samd_conv.cu (e.g. from a git archive "
                     "of the parent commit) to time in turns with the "
                     "conv2d kernel in (f')")
+    ap.add_argument("--old-attention", metavar="SOURCE",
+                    help="a previous paged_attention.cu (e.g. from a git "
+                    "archive of the parent commit) to time in turns with "
+                    "the attention kernel in (d) and (d')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1431,31 +1674,36 @@ def main() -> int:
             err_mm[4, "temporary", True, 1024], mm_t,
             "M=1024, 4-bit, mean over the 7 linears of 24 layers (the "
             "run's prefills are 8 x its prompt bucket rows)"))
+    old_pa = OldAttention(args.old_attention) if args.old_attention else None
     for fmt in ("bf16", "int8"):
         eng, _, counts = runs[fmt]
-        pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen)
+        pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen,
+                                    old_pa)
         kernels.append(kernel_entry(
             f"paged_decode_attention ({fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:294", counts[DECODE],
             err_pa[fmt, 1], pa_t,
-            "decode B=8 H=Hkv=16 dh=64 ps=16 n_pp=32, per layer"))
+            "decode B=8 H=Hkv=16 dh=64 ps=16 n_pp=32, per layer; ms and "
+            "library_ms are device times"))
     log("(d') the speculative launchers at runs A and B's shapes")
     # each entry's max_abs_err is (b')'s at that run's own shape
     for key, fmt, r in SPEC_RUNS:
         eng, _, counts = runs[key]
         assert eng.speculative == r and (eng._kv_bits == 8) == (fmt == "int8")
-        t = time_ring_fold(eng, dev, timer, gen, f"run {key}, {fmt} KV")
+        t = time_ring_fold(eng, dev, timer, gen, f"run {key}, {fmt} KV",
+                           old_pa)
         kernels.append(kernel_entry(
             f"paged_decode_ring_attention (run {key}, {fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:294", counts[RING],
             err_ring[fmt, r, 1], t, f"draft decode B=8 H=Hkv=16 dh=64 ps=16 "
-            f"n_pp=32, pool to pos-1 + ring R={r}, per layer"))
-        t = time_verify(eng, dev, timer, gen, f"run {key}, {fmt} KV")
+            f"n_pp=32, pool to pos-1 + ring R={r}, per layer; device times"))
+        t = time_verify(eng, dev, timer, gen, f"run {key}, {fmt} KV", old_pa)
         kernels.append(kernel_entry(
             f"paged_verify_attention (run {key}, {fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
-            err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 dh=64 "
-            "ps=16 n_pp=32, per layer"))
+            err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 "
+            "dh=64 ps=16 n_pp=32, per layer; device times"))
+    time_qwen3_attention(dev, timer, gen, old_pa)
 
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
     kernels += run_vggb(dev, gen, timer, card,

@@ -328,6 +328,95 @@ def test_verify_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_attention_kernels_are_deterministic(cuda, packed):
+    """Decode, ring fold and verify at the serving path's shapes (their
+    KV split over a cluster, merged in rank order): two calls agree bit
+    for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + packed)
+    args, kw = _paged_inputs(cuda, gen, 8, 16, 1, 64, 16, 32, packed)
+    ring = _ring_inputs(cuda, gen, 8, 4, 16, 64)
+    vargs, vkw = _verify_inputs(cuda, gen, 8, 5, 16, 1, 64, 16, 32, packed)
+    for fn, a, k in ((ops.paged_decode_attention, args, kw),
+                     (ops.paged_decode_attention, args, dict(kw, **ring)),
+                     (ops.paged_verify_attention, vargs, vkw)):
+        assert torch.equal(fn(*a, **k), fn(*a, **k))
+
+
+def _slots(cuda, gen, lens, hkv, g, dh, ps, n_pp, packed):
+    """Decode inputs whose slot i sits at position lens[i] and owns the
+    pages up to it (lens[i] < 0: an inactive slot)."""
+    (q, kp, vp, _, _), kw = _paged_inputs(cuda, gen, len(lens), hkv, g, dh,
+                                          ps, n_pp, packed)
+    pt = torch.full((len(lens), n_pp), -1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(len(lens), dtype=torch.int32, device=cuda)
+    perm = torch.randperm(kp.shape[0], generator=gen, device=cuda).int()
+    for i, ln in enumerate(lens):
+        if ln >= 0:
+            pt[i, :ln // ps + 1] = perm[i * n_pp:i * n_pp + ln // ps + 1]
+            pos[i] = ln
+    return (q, kp, vp, pt, pos), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("lens,hkv", [
+    ([0, 0, -1, 0], 4),               # one key a slot
+    ([511, 511, 500, 496], 4),        # every page of n_pp = 32 live
+    ([3], 1),                         # one live page, 8 splits
+    ([17, -1, 40], 1)])               # fewer live pages than splits
+def test_paged_attention_kernel_split_edges(cuda, lens, hkv, packed):
+    """The KV split at its edges: slots with one key, slots whose every
+    page of a 32-page table is live, and more splits than live pages
+    (the plan gives one (slot, kv-head) 8 ranks, most of them with no
+    page); against the plain version, inactive slots exact zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(len(lens) + packed)
+    args, kw = _slots(cuda, gen, lens, hkv, 1, 64, 16, 32, packed)
+    plan = pa.attention_plan(len(lens), hkv, 1, 64, 32, 16, 1, 0, packed)
+    assert plan.splits > 1
+    got = ops.paged_decode_attention(*args, **kw)
+    _close(got, pa.paged_decode_attention_plain(*args, **kw))
+    for i, ln in enumerate(lens):
+        assert (got[i] == 0).all() == (ln < 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_verify_kernel_rows_in_the_first_split(cuda, packed):
+    """Verify rows whose keys all lie in the first split while the slot's
+    last query reaches the last page: the later splits hold only keys
+    masked for those rows (m = -1e30, l > 0) and must drop out of the
+    merge; rows at -1 between them stay exact zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + packed)
+    s = 4
+    (q, kp, vp, pt, _), kw = _slots(cuda, gen, [500, 300, -1], 4, 2 * s,
+                                    64, 16, 32, packed)
+    q = q.reshape(3, 4, 2, s, 64).permute(0, 3, 1, 2, 4).reshape(
+        3, s, 8, 64).contiguous()
+    q_pos = torch.tensor([[2, 3, -1, 500], [0, 17, 299, 300],
+                          [-1, -1, -1, -1]], dtype=torch.int32, device=cuda)
+    assert pa.attention_plan(3, 4, s * 2, 64, 32, 16, s, 0,
+                             packed).splits > 1
+    got = ops.paged_verify_attention(q, kp, vp, pt, q_pos, **kw)
+    _close(got, pa.paged_verify_attention_plain(q, kp, vp, pt, q_pos, **kw))
+    dead = q_pos < 0
+    assert (got[dead] == 0).all()
+    assert (got[~dead] != 0).any(dim=-1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_paged_attention_kernel_at_qwen3_14b_gqa(cuda, packed):
+    """Decode at qwen3-14b's attention shape: 8 kv-heads, G = 5, dh = 128
+    (five query rows a stream, 16 lanes a key row)."""
+    gen = torch.Generator(device=cuda).manual_seed(5 + packed)
+    args, kw = _paged_inputs(cuda, gen, 8, 8, 5, 128, 16, 32, packed)
+    got = ops.paged_decode_attention(*args, **kw)
+    _close(got, pa.paged_decode_attention_plain(*args, **kw))
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv_bits", [None, 8])
 def test_speculative_serving_on_card_launches_every_kernel(cuda, kv_bits):
     """A speculative engine on the card (4-bit target, its own draft)

@@ -434,3 +434,226 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
                         property(lambda self: tmp_path / "absent.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mm.KERNEL.lib()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 15, 20, 144])
+@pytest.mark.parametrize("b,hkv,n_pp", [(8, 16, 32), (8, 8, 32), (1, 1, 3),
+                                        (64, 16, 32), (3, 2, 0)])
+def test_attention_split_rule(b, hkv, rows, dh, n_pp, packed):
+    """The attention plan: at most 8 splits (one cluster) and never more
+    than the table's columns; the tensor-core path for several rows at
+    dh = 64 or 128, one row a stream otherwise; row blocks that cover
+    the rows with none empty; the blocks within one wave of resident
+    blocks (where one split allows it) and no split left unused below
+    that; and a pure function of the shapes."""
+    plan = pa.attention_plan(b, hkv, rows, dh, n_pp, 16, rows, 0, packed)
+    assert 1 <= plan.splits <= pa.MAX_SPLITS
+    assert plan.splits <= max(1, n_pp)
+    mma = rows > 1 and dh in pa.MMA_HEAD_DIMS
+    assert plan.rt == (pa.MMA_ROWS if mma else 1)
+    per_block = pa.MMA_ROWS if mma else pa.THREADS // (dh // 8)
+    assert (plan.row_blocks - 1) * per_block < rows <= (
+        plan.row_blocks * per_block)
+    smem = pa.block_smem(plan.rt, dh, 16, n_pp, rows, 0, packed)
+    assert smem <= 232448  # what one block may have
+    per_sm = min(pa.BLOCKS_PER_SM, pa.SMEM_PER_SM // (smem + 1024))
+    resident = int(pa.WAVE_FILL * per_sm * pa.NUM_SMS)
+    blocks = b * hkv * plan.row_blocks
+    if plan.splits > 1:
+        assert blocks * plan.splits <= resident
+    if plan.splits < min(pa.MAX_SPLITS, n_pp):
+        assert blocks * (plan.splits + 1) > resident
+    pa.attention_plan.cache_clear()
+    assert pa.attention_plan(b, hkv, rows, dh, n_pp, 16, rows, 0,
+                             packed) == plan
+
+
+def test_attention_plan_at_the_serving_shapes():
+    """qwen1.5-0.5b's decode and ring fold (8 slots x 16 kv-heads, one
+    row) split 3 ways on CUDA cores, its verifies 3 ways on the tensor
+    cores; qwen3-14b's decode and verify (8 kv-heads, G = 5, dh = 128) 4
+    ways on the tensor cores, every row of a (slot, kv-head) in one
+    block."""
+    assert pa.attention_plan(8, 16, 1, 64, 32, 16, 1, 0, False) == (3, 1, 1)
+    assert pa.attention_plan(8, 16, 1, 64, 32, 16, 1, 0, True) == (3, 1, 1)
+    assert pa.attention_plan(8, 16, 1, 64, 32, 16, 1, 4, False) == (3, 1, 1)
+    assert pa.attention_plan(8, 16, 5, 64, 32, 16, 5, 0, False) == (3, 16, 1)
+    assert pa.attention_plan(8, 16, 3, 64, 32, 16, 3, 0, True) == (3, 16, 1)
+    assert pa.attention_plan(8, 8, 5, 128, 32, 16, 1, 0, False) == (4, 16, 1)
+    assert pa.attention_plan(8, 8, 15, 128, 32, 16, 3, 0, False) == (
+        4, 16, 1)
+
+
+def _launch_args(monkeypatch):
+    """The CUDA wrappers' launches, recorded instead of made: each
+    (launcher, its int arguments)."""
+    calls = []
+    monkeypatch.setattr(pa, "_launch", lambda q, fn, *args: calls.append(
+        (fn, [a for a in args if isinstance(a, int)])))
+    monkeypatch.setattr(pa, "stream_handle", lambda t: 0)
+    return calls
+
+
+def test_wrappers_pass_the_plan_of_the_shapes(monkeypatch):
+    """The wrappers take the split from shapes alone: other positions and
+    another table of the same shapes launch with the same arguments,
+    ending in the plan's (splits, rt)."""
+    calls = _launch_args(monkeypatch)
+    for seed in (1, 2):
+        q, (kp, vp, _, _), pt, pos, _ = _paged_case(
+            b=4, hkv=2, g=4, dh=16, ps=8, n_pp=3, packed=False, dtype="f32",
+            seed=seed)
+        args = (torch.from_numpy(q).bfloat16(),
+                torch.from_numpy(kp).bfloat16(),
+                torch.from_numpy(vp).bfloat16(), torch.from_numpy(pt),
+                torch.from_numpy(pos + seed))
+        pa.paged_decode_attention_cuda(*args)
+        ek, ev, epos = _ring(4, 3, 2, 16, seed=seed)
+        pa.paged_decode_attention_cuda(
+            *args, extra_k=torch.from_numpy(ek).bfloat16(),
+            extra_v=torch.from_numpy(ev).bfloat16(),
+            extra_pos=torch.from_numpy(epos + seed))
+        vq, (kp, vp, _, _), pt, q_pos = _verify_case(
+            b=4, s=3, hkv=2, g=4, dh=16, ps=8, n_pp=3, packed=False,
+            seed=seed)
+        pa.paged_verify_attention_cuda(
+            torch.from_numpy(vq).bfloat16(), torch.from_numpy(kp).bfloat16(),
+            torch.from_numpy(vp).bfloat16(), torch.from_numpy(pt),
+            torch.from_numpy(q_pos))
+    assert [fn for fn, _ in calls] == [
+        "paged_decode_attention_launch",
+        "paged_decode_ring_attention_launch",
+        "paged_verify_attention_launch"] * 2
+    assert calls[:3] == calls[3:]
+    # (..., splits, rt, stream)
+    decode, ring, verify = (ints[-3:-1] for _, ints in calls[:3])
+    assert decode == list(pa.attention_plan(4, 2, 4, 16, 3, 8, 1, 0,
+                                            False)[:2])
+    assert ring == list(pa.attention_plan(4, 2, 4, 16, 3, 8, 1, 3,
+                                          False)[:2])
+    assert verify == list(pa.attention_plan(4, 2, 12, 16, 3, 8, 3, 0,
+                                            False)[:2])
+
+
+def test_attention_wrappers_refuse_head_dims_the_kernel_does_not_take(
+        monkeypatch):
+    _launch_args(monkeypatch)
+    q = torch.zeros((2, 4, 24), dtype=torch.bfloat16)
+    pool = torch.zeros((4, 4, 2, 24), dtype=torch.bfloat16)
+    pt = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_decode_attention_cuda(q, pool, pool, pt,
+                                       torch.zeros(2, dtype=torch.int32))
+
+
+def _split_everywhere(q, pools, pt, pos, **extra):
+    """The plain page loop cut at every page boundary, its states and
+    their rank-order merge as the output."""
+    kp, vp, ks, vs = pools
+    states = pa.paged_attention_states(
+        q, kp, vp, pt, pos, tuple(range(pt.shape[1] + 1)), k_scale=ks,
+        v_scale=vs, **extra)
+    return states, pa.finish_state(pa.merge_states(states), q.shape,
+                                   q.dtype)
+
+
+def _torch_pools(pools):
+    kp, vp, ks, vs = pools
+    if ks is None:
+        return (torch.from_numpy(kp), torch.from_numpy(vp), None, None)
+    return (_to_torch_words(kp), _to_torch_words(vp), torch.from_numpy(ks),
+            torch.from_numpy(vs))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("ring", [False, True])
+def test_split_decode_merges_to_the_unsplit_loop(ring, g, packed):
+    """Decode (and the draft's ring fold, folded into the last split) cut
+    at every page boundary and merged in rank order equals the unsplit
+    plain loop and the JAX reference; the empty slot, whose every split
+    is empty, emits exact zeros."""
+    q, pools, pt, pos, _ = _paged_case(b=5, hkv=2, g=g, dh=16, ps=4,
+                                       n_pp=4, packed=packed, dtype="f32",
+                                       seed=40 + g + 2 * packed)
+    tq, tpools = torch.from_numpy(q), _torch_pools(pools)
+    tpt, tpos = torch.from_numpy(pt), torch.from_numpy(pos)
+    scales = {} if pools[2] is None else dict(k_scale=pools[2],
+                                              v_scale=pools[3])
+    extra, jextra = {}, {}
+    if ring:
+        ek, ev, epos = _ring(5, 3, 2, 16, seed=g)
+        extra = dict(extra_k=torch.from_numpy(ek),
+                     extra_v=torch.from_numpy(ev),
+                     extra_pos=torch.from_numpy(epos))
+        jextra = dict(extra_k=jnp.asarray(ek), extra_v=jnp.asarray(ev),
+                      extra_pos=jnp.asarray(epos))
+    states, merged = _split_everywhere(tq, tpools, tpt, tpos, **extra)
+    assert len(states) == 4
+    unsplit = pa.paged_decode_attention_plain(
+        tq, *tpools[:2], tpt, tpos, k_scale=tpools[2], v_scale=tpools[3],
+        **extra)
+    want = np.asarray(jpa.paged_decode_attention_xla(
+        jnp.asarray(q), jnp.asarray(pools[0]), jnp.asarray(pools[1]),
+        jnp.asarray(pt), jnp.asarray(pos), **jextra,
+        **{k: jnp.asarray(v) for k, v in scales.items()}), np.float32)
+    np.testing.assert_allclose(merged.numpy(), unsplit.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(merged.numpy(), want, rtol=1e-5, atol=1e-5)
+    if not ring:  # slot 1: no page, so every split is empty
+        assert all((m[1] == -1e30).all() and (l_sum[1] == 0).all()
+                   for m, l_sum, _ in states)
+        assert (merged[1] == 0).all()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("g,s", [(1, 5), (4, 3)])
+def test_split_verify_merges_to_the_unsplit_loop(g, s, packed):
+    """The verify cut at every page boundary and merged in rank order
+    equals the unsplit plain loop and the JAX reference. Splits whose
+    keys all lie past a row's position (m = -1e30, l > 0: exp(0) terms)
+    occur and drop out; rows at -1 add no mass in any split; the
+    inactive slot and rows at -1 emit exact zeros."""
+    q, pools, pt, q_pos = _verify_case(b=5, s=s, hkv=2, g=g, dh=16, ps=4,
+                                       n_pp=4, packed=packed,
+                                       seed=50 + g + s + packed)
+    # slot 4: rows in the first page, the last query three pages on, so
+    # the later splits hold only keys past the early rows
+    pt[4] = np.arange(4) + 16
+    q_pos[4] = -1
+    q_pos[4, :2] = [1, 2]
+    q_pos[4, s - 1] = 13
+    tq, tpools = torch.from_numpy(q), _torch_pools(pools)
+    tpt, tpos = torch.from_numpy(pt), torch.from_numpy(q_pos)
+    states, merged = _split_everywhere(tq, tpools, tpt, tpos)
+    unsplit = pa.paged_verify_attention_plain(
+        tq, *tpools[:2], tpt, tpos, k_scale=tpools[2], v_scale=tpools[3])
+    scales = {} if pools[2] is None else dict(k_scale=pools[2],
+                                              v_scale=pools[3])
+    want = np.asarray(jops.paged_verify_attention(
+        jnp.asarray(q), jnp.asarray(pools[0]), jnp.asarray(pools[1]),
+        jnp.asarray(pt), jnp.asarray(q_pos), interpret=True,
+        **{k: jnp.asarray(v) for k, v in scales.items()}), np.float32)
+    np.testing.assert_allclose(merged.numpy(), unsplit.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(merged.numpy(), want, rtol=1e-5, atol=1e-5)
+    live = tpos >= 0
+    masked_split = [((m == -1e30) & (l_sum > 0))[..., 0][live].any()
+                    for m, l_sum, _ in states]
+    assert any(masked_split), "no split with every key masked for a row"
+    dead = ~live
+    assert all((l_sum[dead] == 0).all() for _, l_sum, _ in states)
+    out = merged.numpy()
+    assert (out[q_pos < 0] == 0).all() and (out[1] == 0).all()
+    assert (out[q_pos >= 0] != 0).any(axis=-1).all()
+
+
+def test_merge_of_one_state_is_that_state():
+    gen = torch.Generator().manual_seed(0)
+    m = torch.randn(2, 3, generator=gen)
+    l_sum = torch.rand(2, 3, generator=gen)
+    acc = torch.randn(2, 3, 4, generator=gen)
+    got = pa.merge_states([(m, l_sum, acc)])
+    assert all(torch.equal(a, b) for a, b in zip(got, (m, l_sum, acc)))
