@@ -73,12 +73,18 @@ Phases, any failure exits non-zero:
       ``F.conv2d`` of the dequantized weight (``CONV_F32_TOL`` for f32,
       ``BF16_TOL`` for bf16); then a 1D signal of 3,211,264 values
       (conv1_2's input activations) with 3 taps through
-      ``ops.samd_conv1d`` for the plans (2, 3, 4 bits signed; 4 bits
-      unsigned), bit-identical to the plain chunks on the card and to a
-      direct integer convolution. Exactly the conv launchers of the rule
-      run (``samd_conv.conv2d_plan``: conv1_1's 3 cases on the im2col
-      launcher, the other 28 on the direct one; the chunk launcher 4
-      times), and (c) and (e) launch none. (f') times each layer as device
+      ``ops.samd_conv1d``, one fused launch each (``samd_conv1d_launch``):
+      int64 x for the plans 2, 3, 4 bits signed and 4 bits unsigned, int8
+      x for 4 bits signed, and a view x[1:] (not 16-byte aligned), each
+      bit-identical to ``samd_conv1d_plain`` and to a direct integer
+      convolution. Exactly the conv launchers of the rule run
+      (``samd_conv.conv2d_plan``: conv1_1's 3 cases on the im2col
+      launcher, the other 28 on the direct one; the fused conv1d launcher
+      6 times, the chunk launcher none), and (c) and (e) launch none. The
+      chunk launcher, the TPU function's counterpart, then runs on a path
+      of its own (counts reset before it): the four int64 plans' packed
+      words, 4 launches, each bit-identical to its plain version and
+      overlap-added to the fused output. (f') times each layer as device
       time (the call in a CUDA graph, replayed; ``F.conv2d`` alike), with
       the host-paced times beside it, the wrapper's host time per call and
       the plain version, against the bound of the kernel's route: the
@@ -86,7 +92,13 @@ Phases, any failure exits non-zero:
       MMA terms (two for f32 x) over the 989 TFLOP/s bf16 tensor-core
       peak, the first version's f32 CUDA-core bound (67 TFLOP/s) beside
       it; with ``--old-conv SOURCE`` also a previous ``samd_conv.cu``, in
-      turns (old, new, new, old) on the same inputs.
+      turns (old, new, new, old) on the same inputs. For each samd_conv1d
+      case (the x[1:] view aside) it times, as device time with L2 cold
+      (``cold_graph_ms``), the fused op, the previous unfused composition
+      (PyTorch packing, the chunk launcher, the strided overlap-add; in
+      turns unfused, fused, fused, unfused), the chunk launcher alone and
+      ``F.conv1d`` in f32 on the pre-cast signal, each beside its bytes
+      bound, its host-paced time and the wrapper's host time per call.
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -132,16 +144,22 @@ VERIFY = "paged_verify_attention_launch"
 CONV2D = "samd_conv2d_launch"
 CONV2D_IM2COL = "samd_conv2d_im2col_launch"
 CHUNKS = "samd_conv_chunks_launch"
+CONV1D = "samd_conv1d_launch"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 CONV_SOURCE = "src/repro_torch/kernels/csrc/samd_conv.cu"
 CONV_BITS = (2, 4, 8)
 # (f)'s bf16 layer and the layer whose numbers stand in the kernels line
 CONV_BF16_CASE = ("conv3_1", 4)
 CONV_ENTRY_CASE = ("conv3_2", 4)
-# conv1_2's input activations (64 x 224 x 224) as one 1D signal, 3 taps
+# conv1_2's input activations (64 x 224 x 224) as one 1D signal, 3 taps:
+# (bits, signed, x's dtype) of (f)'s samd_conv1d runs, and one more on a
+# view x[1:] of the entry case's signal (not 16-byte aligned)
 CONV1D_N, CONV1D_TAPS = 64 * 224 * 224, 3
-CONV1D_PLANS = ((2, True), (3, True), (4, True), (4, False))
-CONV1D_ENTRY_PLAN = (4, True)
+CONV1D_CASES = ((2, True, torch.int64), (3, True, torch.int64),
+                (4, True, torch.int64), (4, False, torch.int64),
+                (4, True, torch.int8))
+CONV1D_ENTRY_CASE = (4, True, torch.int64)
+L2_BYTES = 50 * 2 ** 20  # H100 SXM
 # the speculative serving runs of (e): (run, KV format, K); (b') checks the
 # verify kernel at each run's S = K + 1 and the ring fold at its R = K
 SPEC_RUNS = (("A", "bf16", 4), ("B", "int8", 2))
@@ -849,13 +867,8 @@ def time_samd_matmul(dev, timer, params, label, m, old=None):
         row["tflops"] = row["ops"] / row["ms"] / 1e9
         if name == DECODE_LINEARS[0][1]:
             w0 = ws[0]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                ops.samd_matmul(x, w0.packed, w0.scale, k, cfg)
-            host = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-            row["host_us_per_call"] = host
+            row["host_us_per_call"] = host_us_per_call(
+                lambda: ops.samd_matmul(x, w0.packed, w0.scale, k, cfg))
         rows.append(row)
         for key in keys:
             tot[key] += row[key]
@@ -926,7 +939,7 @@ def attention_times(dev, timer, nl, kern, plain, lib, old=None,
     to the plain version, and of the yardstick; host-paced times (the
     Timer, which also pays each call's host dispatch) of the kernel and
     the yardstick; the plain version; and, with ``host_call``, the
-    wrapper's host time per call (1000 calls, no sync), plain and inside
+    wrapper's host time per call (``host_us_per_call``), plain and inside
     a ``torch.cuda.device`` context as the wrapper entered one on every
     call before."""
     t = dict(ms=[], old_ms=[])
@@ -944,18 +957,11 @@ def attention_times(dev, timer, nl, kern, plain, lib, old=None,
     if old is not None:
         out["old_ms"] = float(np.mean(t["old_ms"]))
     if host_call is not None:
-        for key, ctx in (("host_us_per_call", False),
-                         ("host_us_per_call_device_ctx", True)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                if ctx:
-                    with torch.cuda.device(dev):
-                        host_call()
-                else:
-                    host_call()
-            out[key] = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
+        def in_device_ctx():
+            with torch.cuda.device(dev):
+                host_call()
+        out["host_us_per_call"] = host_us_per_call(host_call)
+        out["host_us_per_call_device_ctx"] = host_us_per_call(in_device_ctx)
     return out
 
 
@@ -1265,14 +1271,16 @@ def library_conv2d(x, packed, scale, cfg):
     return fn, fn()[0].permute(1, 2, 0)
 
 
-def conv1d_signal(dev, gen, bits, signed):
+def conv1d_signal(dev, gen, bits, signed, dtype):
+    """Seeded b-bit values x [CONV1D_N] of ``dtype`` and k [CONV1D_TAPS]
+    (int64), and the plan."""
     from repro_torch.core.conv import make_plan
 
     lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed else (
         0, (1 << bits) - 1)
     x = torch.randint(lo, hi + 1, (CONV1D_N,), generator=gen, device=dev)
     k = torch.randint(lo, hi + 1, (CONV1D_TAPS,), generator=gen, device=dev)
-    return x, k, make_plan(bits, CONV1D_TAPS, signed)
+    return x.to(dtype), k, make_plan(bits, CONV1D_TAPS, signed)
 
 
 def conv2d_plan_of(x, packed, scale, cfg, padding=1):
@@ -1308,6 +1316,146 @@ class OldConv:
         if err:
             raise RuntimeError(f"old samd_conv2d launch failed ({err})")
         return out
+
+
+def cold_graph_ms(make, n_bytes, reps=10):
+    """Device ms of one call with L2 cold: ``make(i)`` is the call on the
+    i-th of R copies of its inputs, and R is chosen so that the calls
+    between two uses of one copy move at least twice the 50 MB L2
+    (``n_bytes`` a call). The R calls are captured in turn into one CUDA
+    graph (every output kept alive during capture, so each call writes
+    memory of its own), the graph replayed back to back; the time is per
+    call. (Replays over copies, not an L2 flush between replays: no
+    flush kernel or per-replay event sits in the timed stream.)"""
+    copies = 1 + -(-2 * L2_BYTES // n_bytes)
+    calls = [make(i) for i in range(copies)]
+    return graph_ms(lambda: [c() for c in calls], reps) / copies
+
+
+def copies(*ts):
+    """i -> the i-th copy of the tensors ``ts`` (0: the tensors
+    themselves), each made once."""
+    made = {0: ts}
+
+    def get(i):
+        if i not in made:
+            made[i] = tuple(t.clone() for t in ts)
+        return made[i]
+    return get
+
+
+def host_us_per_call(fn, calls=1000):
+    """Host microseconds a call of ``fn`` takes to return (no sync): the
+    median over five runs of ``calls // 5`` calls, each run after a
+    sync."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls // 5):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e6 / (calls // 5))
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def unfused_conv1d(x, k, plan):
+    """The previous samd_conv1d on the card: PyTorch packing, the chunk
+    launcher, the strided overlap-add."""
+    from repro_torch.core.conv import (
+        overlap_add, pack_conv_kernel, pack_conv_operand,
+    )
+    from repro_torch.kernels import samd_conv as sc
+
+    lanes = sc.samd_conv_chunks_cuda(pack_conv_operand(x, plan),
+                                     pack_conv_kernel(k, plan), plan)
+    return overlap_add(lanes, plan, x.shape[0] + plan.taps - 1)
+
+
+def time_conv1d(case, x, k, plan, timer):
+    """(f')'s rows for one samd_conv1d case: the fused op, the previous
+    unfused composition (in turns: unfused, fused, fused, unfused), the
+    chunk launcher alone, the composition's other two parts (its packing
+    and its overlap-add) and F.conv1d in f32 on the pre-cast signal, each
+    as device time with L2 cold (``cold_graph_ms``), host-paced times and
+    the wrappers' host time per call beside; bounds from the bytes of
+    each (x in its own dtype, int32 out; the chunk launcher's words and
+    [nc, lanes + taps - 1] lanes; f32 in and out for F.conv1d). Returns
+    (fused row, chunk row)."""
+    from repro_torch.core.conv import (
+        overlap_add, pack_conv_kernel, pack_conv_operand,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_conv as sc
+
+    bits, signed, dtype = case
+    n, taps = x.shape[0], plan.taps
+    n_out = n + taps - 1
+    label = f"{bits}-bit signed={signed} {str(dtype)[6:]} x"
+    fused_bytes = n * x.element_size() + taps * k.element_size() + n_out * 4
+    xk = copies(x, k)
+
+    def fused(i):
+        return lambda: ops.samd_conv1d(*xk(i), plan)
+
+    def unfused(i):
+        return lambda: unfused_conv1d(*xk(i), plan)
+
+    t = dict(ms=[], unfused_ms=[])
+    for who, make in (("unfused_ms", unfused), ("ms", fused), ("ms", fused),
+                      ("unfused_ms", unfused)):
+        t[who].append(cold_graph_ms(make, fused_bytes))
+    xf = copies(x.float()[None, None])
+    kf = k.flip(0).float()[None, None]
+
+    def lib(i):
+        return lambda: torch.nn.functional.conv1d(*xf(i), kf,
+                                                  padding=taps - 1)
+    lib_bytes = (n + taps + n_out) * 4
+    lib_ms = cold_graph_ms(lib, lib_bytes)
+
+    def pack(i):
+        x_i, k_i = xk(i)
+        return lambda: (pack_conv_operand(x_i, plan),
+                        pack_conv_kernel(k_i, plan))
+    lanes = copies(sc.samd_conv_chunks_cuda(pack_conv_operand(x, plan),
+                                            pack_conv_kernel(k, plan), plan))
+
+    def add(i):
+        return lambda: overlap_add(*lanes(i), plan, n_out)
+    parts = dict(
+        unfused_pack_ms=cold_graph_ms(pack, fused_bytes),
+        unfused_overlap_add_ms=cold_graph_ms(
+            add, (lanes(0)[0].numel() + n_out) * 4))
+    fused_row = timing_row(
+        f"samd_conv1d {label}", float(np.mean(t["ms"])),
+        timer(lambda: sc.samd_conv1d_plain(x, k, plan), iters=3), lib_ms,
+        fused_bytes, 0, unfused_ms=float(np.mean(t["unfused_ms"])), **parts,
+        host_paced_ms=timer(fused(0), iters=20),
+        unfused_host_paced_ms=timer(unfused(0), iters=10),
+        library_host_paced_ms=timer(lib(0), iters=20),
+        host_us_per_call=host_us_per_call(fused(0), 200),
+        unfused_host_us_per_call=host_us_per_call(unfused(0), 50),
+        library_bound_ms=bound_ms(lib_bytes, 0)[0])
+
+    xw, kw = pack_conv_operand(x, plan), pack_conv_kernel(k, plan)
+    nc = xw.shape[0]
+    chunk_bytes = nc * 4 + 4 + nc * plan.out_lanes_per_chunk * 4
+    xw_i = copies(xw)
+
+    def chunks(i):
+        return lambda: sc.samd_conv_chunks_cuda(*xw_i(i), kw, plan)
+    chunk_row = timing_row(
+        f"samd_conv_chunks {label} (L={plan.fmt.lane_width})",
+        cold_graph_ms(chunks, chunk_bytes),
+        timer(lambda: sc.samd_conv_chunks_plain(xw, kw, plan), iters=3),
+        lib_ms, chunk_bytes, 0, words=nc, host_paced_ms=timer(chunks(0)),
+        host_us_per_call=host_us_per_call(chunks(0), 200))
+    for row in (fused_row, chunk_row):
+        if row["ms"] < row["bound_ms"]:
+            raise AssertionError(f"samd_conv1d {label}: {row['ms']} ms "
+                                 "under its bound")
+    return fused_row, chunk_row
 
 
 def time_conv2d(name, bits, dtype, args, out, timer, old, host=False):
@@ -1362,12 +1510,7 @@ def time_conv2d(name, bits, dtype, args, out, timer, old, host=False):
         bound_f32_cores_ms=(bound_ms(n_bytes, n_ops, F32_OPS_PER_S)[0]
                             if dtype == torch.float32 else None))
     if host:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(1000):
-            new()
-        extra["host_us_per_call"] = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
+        extra["host_us_per_call"] = host_us_per_call(new)
     ms = float(np.mean(t["ms"]))
     row = timing_row(
         f"samd_conv2d {name} {bits}-bit {str(dtype)[6:]}", ms,
@@ -1380,8 +1523,10 @@ def time_conv2d(name, bits, dtype, args, out, timer, old, host=False):
 
 
 def run_vggb(dev, gen, timer, card, old=None):
-    """Phase (f): the main path through both conv launchers, then every
-    result against its references, then the timings. Returns the two
+    """Phase (f): the main path through the conv2d launchers and the
+    fused conv1d launcher, then every result against its references;
+    the chunk launcher on its own path (the four int64 plans' packed
+    words) against its plain version; then the timings. Returns the
     kernels-line entries."""
     from repro_torch.core.conv import (
         overlap_add, pack_conv_kernel, pack_conv_operand,
@@ -1391,13 +1536,16 @@ def run_vggb(dev, gen, timer, card, old=None):
 
     cases = vggb_cases()
     inputs = [vggb_inputs(dev, gen, *c[1:]) for c in cases]
-    signals = [conv1d_signal(dev, gen, b, sg) for b, sg in CONV1D_PLANS]
+    signals = [conv1d_signal(dev, gen, *case) for case in CONV1D_CASES]
+    entry = CONV1D_CASES.index(CONV1D_ENTRY_CASE)
+    x, k, plan = signals[entry]
+    signals.append((x[1:], k, plan))  # not 16-byte aligned
     ops.reset_launch_counts()
     outs = [ops.samd_conv2d(*args) for args in inputs]
     outs1d = [ops.samd_conv1d(*sig) for sig in signals]
     torch.cuda.synchronize(dev)
     counts = ops.launch_counts()
-    want = {CHUNKS: len(CONV1D_PLANS)}
+    want = {CONV1D: len(signals)}
     for args in inputs:  # conv2d_plan's launcher for each case
         fn = conv2d_plan_of(*args).launcher
         want[fn] = want.get(fn, 0) + 1
@@ -1423,26 +1571,52 @@ def run_vggb(dev, gen, timer, card, old=None):
          for (n, b, d), e in errs.items()})
         + " (max |kernel - plain|, max |kernel - F.conv2d|, max |plain|)")
 
-    lane_err = 0
-    for (bits, signed), (x, k, plan), out in zip(CONV1D_PLANS, signals,
-                                                  outs1d):
+    conv1d_err = 0
+    for (x, k, plan), out in zip(signals, outs1d):
         n = x.shape[0]
         direct = torch.zeros(n + CONV1D_TAPS - 1, dtype=torch.int64,
                              device=dev)
         for j in range(CONV1D_TAPS):
-            direct[j:j + n] += k[j] * x
-        xw, kw = pack_conv_operand(x, plan), pack_conv_kernel(k, plan)
-        lanes = sc.samd_conv_chunks_cuda(xw, kw, plan)
-        plain_lanes = sc.samd_conv_chunks_plain(xw, kw, plan)
-        plain = overlap_add(plain_lanes, plan, n + CONV1D_TAPS - 1)
-        lane_err = max(lane_err, (lanes - plain_lanes).abs().max().item())
-        if not (torch.equal(lanes, plain_lanes) and torch.equal(out, plain)
+            direct[j:j + n] += k[j] * x.long()
+        plain = sc.samd_conv1d_plain(x, k, plan)
+        conv1d_err = max(conv1d_err, (out - plain).abs().max().item())
+        if not (out.dtype == torch.int32 and torch.equal(out, plain)
                 and torch.equal(out.long(), direct)):
-            raise AssertionError(f"samd_conv1d {bits}-bit signed={signed}: "
-                                 "not bit-identical")
-    log(f"  samd_conv1d: {len(CONV1D_PLANS)} plans on {CONV1D_N} values "
-        "bit-identical to the plain chunks and to a direct integer "
-        "convolution")
+            raise AssertionError(
+                f"samd_conv1d {plan.fmt.bits}-bit signed={plan.fmt.signed} "
+                f"{x.dtype} (offset {x.storage_offset()}): not "
+                "bit-identical")
+    names = [f"{b}-bit signed={sg} {str(d)[6:]}" for b, sg, d in CONV1D_CASES]
+    log(f"  samd_conv1d: {len(signals)} signals of {CONV1D_N} values "
+        f"({', '.join(names)}, and the entry case's x[1:]) bit-identical "
+        "to samd_conv1d_plain and to a direct integer convolution")
+
+    # the chunk launcher, the counterpart of the TPU function, on its own
+    # path: the int64 plans' packed words, then against its plain version
+    int64 = [(sig, out) for sig, out, case in zip(signals, outs1d,
+                                                  CONV1D_CASES)
+             if case[2] == torch.int64]
+    words = [(pack_conv_operand(x, plan), pack_conv_kernel(k, plan), plan)
+             for (x, k, plan), _ in int64]
+    ops.reset_launch_counts()
+    chunk_lanes = [sc.samd_conv_chunks_cuda(*w) for w in words]
+    torch.cuda.synchronize(dev)
+    chunk_counts = ops.launch_counts()
+    if chunk_counts != {fn: len(words) if fn == CHUNKS else 0
+                        for fn in chunk_counts}:
+        raise AssertionError(f"(f) chunk path launched {chunk_counts}")
+    lane_err = 0
+    for (xw, kw, plan), lanes, (_, out) in zip(words, chunk_lanes, int64):
+        plain_lanes = sc.samd_conv_chunks_plain(xw, kw, plan)
+        lane_err = max(lane_err, (lanes - plain_lanes).abs().max().item())
+        if not (torch.equal(lanes, plain_lanes) and torch.equal(
+                overlap_add(lanes, plan, out.shape[0]), out)):
+            raise AssertionError(f"samd_conv_chunks {plan.fmt.bits}-bit "
+                                 f"signed={plan.fmt.signed}: not "
+                                 "bit-identical")
+    log(f"  samd_conv_chunks: {len(words)} launches "
+        f"{json.dumps({CHUNKS: chunk_counts[CHUNKS]})}, bit-identical to "
+        "its plain version, overlap-added to the fused outputs")
 
     log(f"(f') conv kernel times (card: {card})")
     rows = {}
@@ -1464,27 +1638,22 @@ def run_vggb(dev, gen, timer, card, old=None):
             f"{sum(r['bound_f32_cores_ms'] for r in sel):.4f}) (device "
             "times)")
 
-    chunk_rows = {}
-    for (bits, signed), (x, k, plan) in zip(CONV1D_PLANS, signals):
-        xw, kw = pack_conv_operand(x, plan), pack_conv_kernel(k, plan)
-        kern = timer(lambda: sc.samd_conv_chunks_cuda(xw, kw, plan))
-        plain = timer(lambda: sc.samd_conv_chunks_plain(xw, kw, plan),
-                      iters=3)
-        whole = timer(lambda: ops.samd_conv1d(x, k, plan), iters=10)
-        xf = x.float()[None, None]
-        kf = k.flip(0).float()[None, None]
-        lib = timer(lambda: torch.nn.functional.conv1d(
-            xf, kf, padding=CONV1D_TAPS - 1))
-        n_bytes = xw.numel() * 4 + 4 + xw.numel() * plan.out_lanes_per_chunk * 4
-        chunk_rows[bits, signed] = timing_row(
-            f"samd_conv_chunks {bits}-bit signed={signed} "
-            f"(L={plan.fmt.lane_width}, {xw.numel()} words)", kern, plain,
-            lib, n_bytes, 0, samd_conv1d_ms=whole)
+    conv1d_rows = {}
+    for case, (x, k, plan) in zip(CONV1D_CASES, signals):
+        conv1d_rows[case] = time_conv1d(case, x, k, plan, timer)
+    log("  samd_conv1d device ms (L2 cold) fused / unfused / chunk "
+        "launcher / F.conv1d / fused bound: " + json.dumps({
+            f"{b}-bit signed={sg} {str(d)[6:]}": [
+                round(r[key], 5) for r, key in (
+                    (f, "ms"), (f, "unfused_ms"), (c, "ms"),
+                    (f, "library_ms"), (f, "bound_ms"))]
+            for (b, sg, d), (f, c) in conv1d_rows.items()}))
 
     name, bits = CONV_ENTRY_CASE
     _, c_in, c_out, h, w, _, _ = next(c for c in cases
                                       if c[0] == name and c[5] == bits)
-    bits1d, signed1d = CONV1D_ENTRY_PLAN
+    bits1d, signed1d, dtype1d = CONV1D_ENTRY_CASE
+    fused_row, chunk_row = conv1d_rows[CONV1D_ENTRY_CASE]
     return [
         kernel_entry(
             f"samd_conv2d (VGG-B {name}, {bits}-bit, f32)", CONV_SOURCE,
@@ -1504,11 +1673,21 @@ def run_vggb(dev, gen, timer, card, old=None):
             "weights, C_out 64 (27 products a pixel); library: F.conv2d of "
             "the dequantized weight (f32, no TF32); device times"),
         kernel_entry(
+            f"samd_conv1d fused ({bits1d}-bit signed plan, "
+            f"{str(dtype1d)[6:]} x)", CONV_SOURCE,
+            "src/repro/kernels/samd_conv.py:105", counts[CONV1D],
+            conv1d_err, fused_row,
+            f"{CONV1D_N} values, {CONV1D_TAPS} taps -> int32; launches: "
+            f"{len(signals)} signals of (f); library: F.conv1d in f32 on "
+            "the pre-cast signal; device times, L2 cold"),
+        kernel_entry(
             f"samd_conv_chunks ({bits1d}-bit signed plan)", CONV_SOURCE,
-            "src/repro/kernels/samd_conv.py:105", counts[CHUNKS], lane_err,
-            chunk_rows[bits1d, signed1d],
-            f"{CONV1D_N} values, {CONV1D_TAPS} taps, per launch; library: "
-            "F.conv1d in f32 of the whole samd_conv1d"),
+            "src/repro/kernels/samd_conv.py:105", chunk_counts[CHUNKS],
+            lane_err, chunk_row,
+            f"{CONV1D_N} values' {chunk_row['words']} "
+            "chunk words, per launch; launches: its own path (the int64 "
+            "plans' words); library: "
+            "F.conv1d in f32 of the whole conv; device times, L2 cold"),
     ]
 
 
@@ -1520,8 +1699,9 @@ def kernel_entry(name, source, replaces, launches, err, t, shape):
              "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
              "library_ms": t["library_ms"], "shape": shape}
-    for key in ("old_ms", "host_paced_ms", "library_host_paced_ms",
-                "host_us_per_call", "host_us_per_call_device_ctx"):
+    for key in ("old_ms", "unfused_ms", "host_paced_ms",
+                "library_host_paced_ms", "host_us_per_call",
+                "host_us_per_call_device_ctx"):
         if key in t:
             entry[key] = t[key]
     return entry

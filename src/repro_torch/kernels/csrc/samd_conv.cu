@@ -76,15 +76,62 @@
 //    x loads or the unpack saves at most a fifth each, and the skeleton
 //    of barriers, word loads and `ldmatrix` keeps most of the time.
 
-// 2. samd_conv_chunks_launch replaces `samd_conv_chunks` (`_conv_kernel`):
-//    the paper's convolution as long multiplication (§5-6). One thread per
-//    packed chunk word: the 32x32 -> 64-bit product with the kernel word
-//    (Hopper's native wide multiply replaces the reference's 16-bit limbs),
-//    for signed plans the Grys high-half adjustment and the Fig. 12 borrow
-//    fixup with its carry, then the extraction of `out_lanes` lanes of width
-//    L (those that straddle bit 32 included), sign-extended when signed.
-//    Bit-exact integer work, bound by bytes: 4 bytes read and 4 * out_lanes
-//    written per word.
+// 2. Conv as long multiplication (paper §5-6), the reference's
+//    `samd_conv_chunks` (`_conv_kernel`) and the op around it
+//    (`ops.samd_conv1d`: pack the chunks, run the kernel, overlap-add).
+//    One device function, `chunk_product`, does the kernel's arithmetic on
+//    a chunk word and the kernel word: the native 32x32 -> 64-bit multiply
+//    (for signed plans the signed one, which is the unsigned product with
+//    Grys' high-half adjustment) and, for signed plans, the Fig. 12 borrow
+//    fixup as one 64-bit add, so the carry from lo into hi is in it;
+//    `product_lane` extracts lane t at bit t * L (straddling bit 32 or
+//    not), sign-extended when signed. Two launchers share them.
+//
+//    samd_conv1d_launch, the op users call, fused: the raw integer values
+//    x [n] (int8, uint8, int16, int32 or int64, one instantiation each)
+//    and the kernel values k [taps] -> out int32 [n + taps - 1] =
+//    np.convolve(x, k). Bound by bytes: n values read once in x's own
+//    type and n + taps - 1 int32 written once, nothing else; the unfused
+//    op (PyTorch packing over int64 temporaries, the chunk kernel's
+//    [nc, lanes + taps - 1] intermediate, a strided add per lane over a
+//    zeroed output) moved many times those bytes in a chain of launches.
+//    A block owns a tile of `tile_chunks` chunks (a multiple of 16, from
+//    the wrapper's conv1d_plan), i.e. tile_chunks * lanes values and as
+//    many outputs. Blocks are persistent (four an SM, each walking the
+//    tiles with stride gridDim.x): with a block launched per tile the
+//    launch alone took 0.0026-0.0039 ms of a ~0.018 ms call, persistent
+//    0.0014-0.0018 (tools/conv1d_ablation.py, H100 80GB HBM3, 700 W).
+//    * Loads: each tile's values, and the whole 16-byte vectors before
+//      it that hold the chunk before it (the halo), come into shared
+//      memory as 16-byte `cp.async` copies (zero-filled outside x), into
+//      one of two buffers, so the next tile's copies are in flight while
+//      this one is computed and stored; an x that is not 16-byte aligned
+//      (a view such as x[1:]) or not contiguous is read element-wise
+//      instead, in this kernel.
+//    * Packing: each thread packs its chunk word from shared memory, each
+//      value truncated to `bits` bits and sign-extended into the spacer
+//      bits (pack_conv_operand + sign_extend_for_mul, out-of-range values
+//      included); the block packs the kernel word from k itself.
+//    * Products: each chunk's 64-bit product goes to shared memory once,
+//      the halo chunk's (recomputed in the block) before the tile's.
+//    * Epilogue: output j gets lane j mod lanes of chunk j div lanes and,
+//      when j mod lanes < taps - 1, lane j mod lanes + lanes of the chunk
+//      before (lanes >= taps, so never a third term). Each thread makes
+//      four consecutive outputs from the products and stores them as one
+//      16-byte vector, so the sum needs no atomics and no zero-fill and
+//      two calls are bit-identical; the last tile stops at n + taps - 1.
+//      No host sync: the call can be captured in a CUDA graph.
+//    What holds it back (same tool and card): the bytes. With int64 x
+//    the loads and stores alone take 0.016 of its 0.017 ms; with int8 x
+//    they take 0.0096 of 0.0114 (four bytes written an output against
+//    one read), the packing and products 0.0025.
+//
+//    samd_conv_chunks_launch, the counterpart of the TPU function:
+//    [nc] chunk words -> int32 [nc, lanes + taps - 1], one thread a word,
+//    its lanes staged in shared memory and stored as 16-byte vectors
+//    (stored one by one, each thread's out_lanes * 4 bytes from its
+//    neighbour's, the 2-bit plan took 4.2x as long). Bound by bytes: 4
+//    read and 4 * (lanes + taps - 1) written a word.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -793,35 +840,250 @@ int launch_conv2d(const void* x, const void* packed, const void* scale,
 #undef SAMD_VPW
 }
 
-__global__ void samd_conv_chunks_kernel(const uint32_t* __restrict__ xw,
-                                        const uint32_t* __restrict__ k_word,
-                                        int* __restrict__ out, int nc, int L,
-                                        int out_lanes, int signed_lanes,
-                                        uint32_t m_hi, uint32_t m_lo) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nc) return;
-  const uint32_t a = xw[i], k = *k_word;
-  const unsigned long long p = (unsigned long long)a * k;
-  uint32_t lo = (uint32_t)p, hi = (uint32_t)(p >> 32);
-  if (signed_lanes) {
-    // Grys: the signed high half of an unsigned widening multiply
-    if (a >> 31) hi -= k;
-    if (k >> 31) hi -= a;
-    // Fig. 12 borrow fixup across the 64-bit pair, carry from lo into hi
-    const uint32_t s_lo = lo & m_lo, s_hi = hi & m_hi;
-    const uint32_t q_lo = lo + s_lo;
-    const uint32_t q_hi = hi + s_hi + (q_lo < lo ? 1u : 0u);
-    hi = q_hi ^ s_hi;
-    lo = q_lo ^ s_lo;
+// -- conv as long multiplication ---------------------------------------------
+
+typedef unsigned long long u64;
+
+// The reference's `_conv_kernel` on chunk word a and kernel word k: the
+// 64-bit product; for signed plans the signed one (mul.wide.s32 is the
+// unsigned product with Grys' adjustment hi -= sa * k + sk * a) and the
+// Fig. 12 fixup q = p + (p & msb), p = q ^ (p & msb), whose 64-bit add
+// carries from lo into hi as the reference's (q_lo < lo) does.
+__device__ __forceinline__ u64 chunk_product(uint32_t a, uint32_t k,
+                                             bool signed_lanes, u64 msb) {
+  if (!signed_lanes) return (u64)a * k;
+  const u64 p = (u64)((long long)(int)a * (int)k);
+  const u64 s = p & msb;
+  return (p + s) ^ s;
+}
+
+// lane t (t * L + L <= 64) of width L of a product, sign-extended when
+// signed, as int32 bits
+__device__ __forceinline__ int product_lane(u64 p, int t, int L,
+                                            bool signed_lanes) {
+  const u64 top = p << (64 - (t + 1) * L);
+  return signed_lanes ? (int)((long long)top >> (64 - L))
+                      : (int)(top >> (64 - L));
+}
+
+// one chunk word from `lanes` values, each truncated to its b bits
+// (vmask) and, when signed (vsign = the value's sign bit), sign-extended
+// into the spacer bits above it: pack + sign_extend_for_mul
+template <typename T>
+__device__ __forceinline__ uint32_t pack_chunk(const T* v, int lanes, int L,
+                                               uint32_t vmask,
+                                               uint32_t vsign) {
+  uint32_t w = 0;
+  for (int i = 0; i < lanes; ++i) {
+    const uint32_t u = (uint32_t)v[i] & vmask;
+    w += ((u ^ vsign) - vsign) << (i * L);
   }
-  const unsigned long long both = ((unsigned long long)hi << 32) | lo;
-  const unsigned long long lane_mask = (1ull << L) - 1ull;
-  int* dst = out + (size_t)i * out_lanes;
-  for (int t = 0; t < out_lanes; ++t) {  // t * L + L <= 64 (the plan's check)
-    long long v = (long long)((both >> (t * L)) & lane_mask);
-    if (signed_lanes && ((v >> (L - 1)) & 1)) v -= 1ll << L;
-    dst[t] = (int)v;
+  return w;
+}
+
+// k's integer types by code: int8, uint8, int16, int32, int64
+__device__ __forceinline__ long long read_int(const void* p, long long i,
+                                              int code) {
+  switch (code) {
+    case 0: return ((const int8_t*)p)[i];
+    case 1: return ((const uint8_t*)p)[i];
+    case 2: return ((const int16_t*)p)[i];
+    case 3: return ((const int32_t*)p)[i];
+    default: return ((const long long*)p)[i];
   }
+}
+
+constexpr int C1D_THREADS = 256;
+constexpr int C1D_BLOCKS_PER_SM = 4;    // registers for at least these
+constexpr int C1D_MAX_SMEM = 48 * 1024;  // no opt-in attribute needed
+constexpr int CHUNK_THREADS = 128;
+
+__host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
+
+struct Conv1dArgs {
+  long long n, stride, k_stride, n_out, tiles;
+  u64 msb;  // the top bit of every L-bit lane of 64
+  uint32_t vmask, vsign;
+  uint32_t lanes_magic;  // ceil(2^32 / lanes): j / lanes = umulhi(j, it)
+  int tile_chunks, L, lanes, taps, k_code, signed_lanes;
+};
+
+// shared memory of one block, in bytes: two tile buffers, each the
+// `pre` values before the tile (whole 16-byte vectors that hold the halo
+// chunk's `lanes` values) and the tile's own; the 64-bit products of the
+// halo chunk and the tile's chunks; the kernel word
+struct Conv1dSmem {
+  int pre, buf, prods, kw, bytes;
+  __host__ __device__ Conv1dSmem(int tile_chunks, int lanes, int isz) {
+    pre = align16(lanes * isz) / isz;
+    buf = (pre + tile_chunks * lanes) * isz;  // a multiple of 16
+    prods = 2 * buf;
+    kw = prods + (tile_chunks + 1) * 8;
+    bytes = kw + 16;
+  }
+};
+
+// values [base - pre, base + V) of x into a tile buffer: 16-byte
+// `cp.async` copies (zero-filled outside [0, n)) where x is contiguous
+// and 16-byte aligned, the one vector that holds x's last value and any
+// other x element-wise; then one commit group
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ x,
+                                          const Conv1dArgs& a, int pre,
+                                          int V, long long base,
+                                          bool vectors) {
+  const long long first = base - pre;
+  if (vectors) {
+    constexpr int VEC = 16 / sizeof(T);
+    for (int v = threadIdx.x; v < (pre + V) / VEC; v += C1D_THREADS) {
+      const long long e = first + (long long)v * VEC;
+      if (e + VEC <= a.n || e >= a.n) {
+        const bool in = e >= 0 && e < a.n;
+        cp_async16(dst + v * VEC, in ? x + e : x, in);
+      } else {
+        for (int j = 0; j < VEC; ++j)
+          dst[v * VEC + j] = e + j < a.n ? x[e + j] : T(0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < pre + V; i += C1D_THREADS) {
+      const long long e = first + i;
+      dst[i] = e >= 0 && e < a.n ? x[e * a.stride] : T(0);
+    }
+  }
+  cp_async_commit();
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ...; the next tile's
+// values load into the other buffer while this one's are computed and
+// stored.
+template <typename T>
+__global__ void __launch_bounds__(C1D_THREADS, C1D_BLOCKS_PER_SM)
+    samd_conv1d_kernel(const T* __restrict__ x, const void* __restrict__ k,
+                       int* __restrict__ out, Conv1dArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Conv1dSmem lay(a.tile_chunks, a.lanes, (int)sizeof(T));
+  u64* prods = (u64*)(smem + lay.prods);
+  uint32_t* kw_s = (uint32_t*)(smem + lay.kw);
+  const int tid = threadIdx.x;
+  const int V = a.tile_chunks * a.lanes;  // values and outputs of a tile
+  const bool vectors = a.stride == 1 && ((uintptr_t)x & 15) == 0;
+  const bool sg = a.signed_lanes != 0;
+  const int tl = a.taps - 1;
+
+  if (tid == 0) {
+    uint32_t w = 0;
+    for (int t = 0; t < a.taps; ++t) {
+      const uint32_t u =
+          (uint32_t)read_int(k, t * a.k_stride, a.k_code) & a.vmask;
+      w += ((u ^ a.vsign) - a.vsign) << (t * a.L);
+    }
+    *kw_s = w;
+  }
+  long long b = blockIdx.x;
+  load_tile((T*)smem, x, a, lay.pre, V, b * V, vectors);
+  for (int it = 0; b < a.tiles; b += gridDim.x, ++it) {
+    const T* xs = (const T*)(smem + (it & 1) * lay.buf) + lay.pre;
+    const long long next = b + gridDim.x;
+    if (next < a.tiles)
+      load_tile((T*)(smem + ((it + 1) & 1) * lay.buf), x, a, lay.pre, V,
+                next * V, vectors);
+    else
+      cp_async_commit();  // an empty group: the wait below stays one back
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // each chunk's product once; the halo chunk's first (prods[0])
+    const uint32_t kw = *kw_s;
+    for (int i = tid; i < a.tile_chunks; i += C1D_THREADS)
+      prods[i + 1] = chunk_product(
+          pack_chunk(xs + i * a.lanes, a.lanes, a.L, a.vmask, a.vsign), kw,
+          sg, a.msb);
+    if (tid == C1D_THREADS - 1)
+      prods[0] = chunk_product(
+          pack_chunk(xs - a.lanes, a.lanes, a.L, a.vmask, a.vsign), kw, sg,
+          a.msb);
+    __syncthreads();
+
+    // four consecutive outputs a thread, stored as one 16-byte vector:
+    // output j = lane j mod lanes of chunk j div lanes (+ lane j mod
+    // lanes + lanes of the chunk before when j mod lanes < taps - 1)
+    const long long base = b * V;
+    const long long left = a.n_out - base;
+    const int count = left < V ? (int)left : V;
+    int* dst = out + base;
+    for (int v = tid; 4 * v < count; v += C1D_THREADS) {
+      const int j = 4 * v;
+      int c = a.lanes == 1 ? j : (int)__umulhi((uint32_t)j, a.lanes_magic);
+      int t = j - c * a.lanes;
+      int r[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t val = (uint32_t)product_lane(prods[c + 1], t, a.L, sg);
+        if (t < tl)
+          val += (uint32_t)product_lane(prods[c], t + a.lanes, a.L, sg);
+        r[q] = (int)val;
+        if (++t == a.lanes) {
+          t = 0;
+          ++c;
+        }
+      }
+      if (j + 4 <= count) {
+        *reinterpret_cast<int4*>(dst + j) = make_int4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j + q < count) dst[j + q] = r[q];
+      }
+    }
+    __syncthreads();  // prods and this buffer are free for the next tile
+  }
+}
+
+__global__ void __launch_bounds__(CHUNK_THREADS)
+    samd_conv_chunks_kernel(const uint32_t* __restrict__ xw,
+                            const uint32_t* __restrict__ k_word,
+                            int* __restrict__ out, int nc, int L,
+                            int out_lanes, int signed_lanes, u64 msb) {
+  extern __shared__ __align__(16) int staged[];  // [CHUNK_THREADS][out_lanes]
+  const int tid = threadIdx.x;
+  const long long c0 = (long long)blockIdx.x * CHUNK_THREADS;
+  if (c0 + tid < nc) {
+    const bool sg = signed_lanes != 0;
+    const u64 p = chunk_product(xw[c0 + tid], *k_word, sg, msb);
+    for (int t = 0; t < out_lanes; ++t)
+      staged[tid * out_lanes + t] = product_lane(p, t, L, sg);
+  }
+  __syncthreads();
+  const long long left = nc - c0;
+  const int count = (left < CHUNK_THREADS ? (int)left : CHUNK_THREADS) *
+                    out_lanes;
+  int* dst = out + c0 * out_lanes;
+  for (int v = tid; 4 * v < count; v += CHUNK_THREADS) {
+    const int j = 4 * v;
+    if (j + 4 <= count) {
+      *reinterpret_cast<int4*>(dst + j) =
+          *reinterpret_cast<const int4*>(staged + j);
+    } else {
+      for (int q = j; q < count; ++q) dst[q] = staged[q];
+    }
+  }
+}
+
+u64 lane_msb(int L) {
+  u64 msb = 0;
+  for (int b = L - 1; b < 64; b += L) msb |= 1ull << b;
+  return msb;
+}
+
+template <typename T>
+int run_conv1d(const void* x, const void* k, void* out, const Conv1dArgs& a,
+               int blocks, cudaStream_t s) {
+  const int smem = Conv1dSmem(a.tile_chunks, a.lanes, (int)sizeof(T)).bytes;
+  if (smem > C1D_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  samd_conv1d_kernel<T><<<blocks, C1D_THREADS, smem, s>>>(
+      (const T*)x, k, (int*)out, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -862,18 +1124,61 @@ int samd_conv2d_im2col_launch(const void* x, const void* packed,
                        x_bf16, splits, step_k, steps, 1, stream);
 }
 
+// x [n] of element stride `stride` (int8, uint8, int16, int32, int64 by
+// x_code 0-4) and k [taps] of element stride `k_stride` (k_code, the
+// same codes), both on the card;
+// out int32 [n_out = n + taps - 1]. The plan is the wrapper's
+// (samd_conv.conv1d_plan): `tiles` tiles of `tile_chunks` chunks of
+// `lanes` values of width L, covering n_out exactly (refused otherwise),
+// taken by `blocks` persistent blocks. Returns cudaGetLastError().
+int samd_conv1d_launch(const void* x, long long n, long long stride,
+                       const void* k, long long k_stride, int k_code,
+                       void* out, long long n_out,
+                       int tile_chunks, int tiles, int blocks, int L,
+                       int lanes, int taps, int bits, int signed_lanes,
+                       int x_code, void* stream) {
+  const long long tile = (long long)tile_chunks * lanes;
+  if (L < 1 || L > 32 || lanes < 1 || lanes * L > 32 || taps < 1 ||
+      taps > lanes || (lanes + taps - 1) * L > 64 || bits < 1 || bits > L ||
+      tile_chunks < 16 || tile_chunks % 16 || n < 0 || stride < 0 ||
+      k_stride < 0 || n_out != n + taps - 1 || n_out < 1 || tiles < 1 ||
+      (long long)tiles * tile < n_out ||
+      (long long)(tiles - 1) * tile >= n_out || blocks < 1 ||
+      blocks > tiles || k_code < 0 || k_code > 4)
+    return (int)cudaErrorInvalidValue;
+  Conv1dArgs a;
+  a.n = n; a.stride = stride; a.k_stride = k_stride; a.n_out = n_out;
+  a.tiles = tiles;
+  a.msb = lane_msb(L);
+  a.vmask = bits >= 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+  a.vsign = signed_lanes ? 1u << (bits - 1) : 0u;
+  a.lanes_magic = lanes == 1 ? 0u
+                             : (uint32_t)(((1ull << 32) + lanes - 1) / lanes);
+  a.tile_chunks = tile_chunks; a.L = L; a.lanes = lanes; a.taps = taps;
+  a.k_code = k_code; a.signed_lanes = signed_lanes;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (x_code) {
+    case 0: return run_conv1d<int8_t>(x, k, out, a, blocks, s);
+    case 1: return run_conv1d<uint8_t>(x, k, out, a, blocks, s);
+    case 2: return run_conv1d<int16_t>(x, k, out, a, blocks, s);
+    case 3: return run_conv1d<int32_t>(x, k, out, a, blocks, s);
+    case 4: return run_conv1d<long long>(x, k, out, a, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // x_words uint32 [nc]; k_word uint32 [1]; out int32 [nc, out_lanes]; lanes
 // of width L (out_lanes * L <= 64). Returns cudaGetLastError().
 int samd_conv_chunks_launch(const void* x_words, const void* k_word, void* out,
                             int nc, int L, int out_lanes, int signed_lanes,
                             void* stream) {
-  unsigned long long msb = 0;  // the top bit of every L-bit lane of 64
-  for (int b = L - 1; b < 64; b += L) msb |= 1ull << b;
-  const int threads = 256;
-  samd_conv_chunks_kernel<<<(nc + threads - 1) / threads, threads, 0,
+  if (L < 1 || L > 32 || out_lanes < 1 || out_lanes * L > 64 || nc < 1)
+    return (int)cudaErrorInvalidValue;
+  samd_conv_chunks_kernel<<<(nc + CHUNK_THREADS - 1) / CHUNK_THREADS,
+                            CHUNK_THREADS, CHUNK_THREADS * out_lanes * 4,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)x_words, (const uint32_t*)k_word, (int*)out, nc, L,
-      out_lanes, signed_lanes, (uint32_t)(msb >> 32), (uint32_t)msb);
+      out_lanes, signed_lanes, lane_msb(L));
   return (int)cudaGetLastError();
 }
 

@@ -17,12 +17,7 @@ from repro_torch.analysis.contracts import (
     check_conv_plan,
     check_matmul_config,
 )
-from repro_torch.core.conv import (
-    ConvPlan,
-    overlap_add,
-    pack_conv_kernel,
-    pack_conv_operand,
-)
+from repro_torch.core.conv import ConvPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import samd_conv as _conv
@@ -121,16 +116,12 @@ def samd_conv2d(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 def samd_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                 plan: ConvPlan) -> torch.Tensor:
-    """Full 1D integer convolution by the conv-as-multiplication kernel:
-    x [n] int, kernel [taps] int -> [n + taps - 1] int32
-    (``np.convolve``). Packing and the overlap-add of the chunks' lanes
-    are plain PyTorch, as the reference runs them outside its kernel.
-    The plan's lane-safety check runs first and raises
-    ``LaneSafetyError`` on an unsafe plan."""
+    """Full 1D integer convolution by conv as multiplication: x [n] int,
+    kernel [taps] int -> [n + taps - 1] int32 (``np.convolve``). On a
+    card one fused kernel packs, multiplies and overlap-adds
+    (``samd_conv1d_launch``); on the CPU the plain composition runs. The
+    plan's lane-safety check runs first and raises ``LaneSafetyError`` on
+    an unsafe plan."""
     assert_safe(check_conv_plan(plan))
-    n = x.shape[-1]
-    xw = pack_conv_operand(x, plan)
-    kw = pack_conv_kernel(kernel, plan)
-    fn = (_conv.samd_conv_chunks_cuda if _on_cuda(x)
-          else _conv.samd_conv_chunks_plain)
-    return overlap_add(fn(xw, kw, plan), plan, n + plan.taps - 1)
+    fn = _conv.samd_conv1d_cuda if _on_cuda(x) else _conv.samd_conv1d_plain
+    return fn(x, kernel, plan)

@@ -16,11 +16,20 @@ Counterpart of ``repro/kernels/samd_conv.py``; both kernels are in
   ``samd_conv2d_xla`` in PyTorch: per block of C_in words and per (kh,
   kw), unpack the codes, cast them through x's dtype (the reference's
   ``codes.astype(x.dtype)``) and contract the shifted window in f32.
+- ``samd_conv1d_launch`` is the op users call, ``ops.samd_conv1d``,
+  fused: the raw integer values x [n] and the kernel values k [taps] ->
+  int32 [n + taps - 1] (``np.convolve``), the packing in its loads and the
+  overlap-add of the chunks' lanes in its epilogue. :func:`conv1d_plan`
+  gives its tiles and grid. Its plain version, ``samd_conv1d_plain``, is
+  the composition the reference runs: ``pack_conv_operand`` -> the chunk
+  products -> ``overlap_add``.
 - ``samd_conv_chunks_launch`` replaces ``samd_conv_chunks``: each packed
   chunk word times the kernel word (conv as long multiplication, §5-6),
   extracted to int32 [nc, lanes + taps - 1]. ``samd_conv_chunks_plain``
   is ``core.conv.chunk_products`` + ``extract_outputs`` (16-bit limbs, as
-  the reference); the kernel's output is bit-identical to it.
+  the reference); the kernel's output is bit-identical to it. Both
+  launchers share one device function for the product, fixup and
+  extraction.
 """
 from __future__ import annotations
 
@@ -30,7 +39,14 @@ import functools
 
 import torch
 
-from repro_torch.core.conv import ConvPlan, chunk_products, extract_outputs
+from repro_torch.core.conv import (
+    ConvPlan,
+    chunk_products,
+    extract_outputs,
+    overlap_add,
+    pack_conv_kernel,
+    pack_conv_operand,
+)
 from repro_torch.core.samd import words32
 from repro_torch.kernels._build import Kernel, ptr, stream_handle
 from repro_torch.kernels.samd_matmul import unpack_codes
@@ -38,12 +54,16 @@ from repro_torch.quant.config import QuantConfig
 
 DIRECT = "samd_conv2d_launch"
 IM2COL = "samd_conv2d_im2col_launch"
+CONV1D = "samd_conv1d_launch"
+CHUNKS = "samd_conv_chunks_launch"
 _CONV2D_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel(
     "samd_conv", "samd_conv.cu",
     {DIRECT: _CONV2D_ARGS, IM2COL: _CONV2D_ARGS,
-     "samd_conv_chunks_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
+     CONV1D: [_P, _LL, _LL, _P, _LL, _I, _P, _LL] + [_I] * 9 + [_P],
+     CHUNKS: [_P] * 3 + [_I] * 4 + [_P]},
 )
 # output pixels x output channels of one block of the conv2d kernel
 BLOCK_M, BLOCK_N = 128, 64
@@ -239,13 +259,135 @@ def samd_conv2d_cuda(x: torch.Tensor, packed: torch.Tensor,
     bad operands and on a failed build or launch."""
     plan, out, _ws, args = conv2d_launch_args(x, packed, scale, cfg,
                                               padding=padding, signed=signed)
-    dev = x.get_device()
+    _launch_on(x, plan.launcher, *args)
+    return out
+
+
+# -- conv as long multiplication --------------------------------------------
+
+# x's integer types, by the launcher's code (one kernel instantiation each)
+INT_CODES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.int32: 3,
+             torch.int64: 4}
+_INT_NAMES = ", ".join(str(d)[6:] for d in INT_CODES)
+# chunks a tile, at most, and bytes of x's values a tile, at most (fewer
+# chunks where lanes x itemsize is wide); persistent blocks an SM, the
+# source's register bound. Two tile buffers of at most 20 KB, the 8-byte
+# products of at most 513 chunks and the kernel word stay under the 48 KB
+# a block may take without opting in, for every plan and dtype (the
+# launcher refuses a tile that does not fit). tools/conv1d_ablation.py
+# sweeps both: 256-1024 chunks and 3-4 blocks are within 3% of each other.
+C1D_TILE_CHUNKS = 512
+C1D_TILE_BYTES = 20 * 1024
+C1D_BLOCKS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv1dPlan:
+    """How the fused conv1d kernel covers one signal: ``tiles`` tiles of
+    ``tile_chunks`` chunks of ``lanes`` values, taken by ``blocks``
+    persistent blocks (block i takes tiles i, i + blocks, ...). Tile b
+    reads the values and writes the outputs of chunks [b * tile_chunks,
+    (b + 1) * tile_chunks), the last tile only up to ``n_out``, and
+    recomputes the chunk before its first (the halo), whose high lanes
+    reach its first outputs."""
+
+    n: int
+    n_out: int
+    lanes: int
+    chunks: int
+    tile_chunks: int
+    tiles: int
+    blocks: int
+
+    def tile(self, b: int) -> tuple[int, int, int, int]:
+        """(halo chunk, first chunk, stop chunk, stop output) of tile b;
+        a halo of -1 is the zero chunk before the signal."""
+        first = b * self.tile_chunks
+        stop = min(first + self.tile_chunks, self.chunks)
+        return first - 1, first, stop, min(stop * self.lanes, self.n_out)
+
+
+@functools.lru_cache(maxsize=4096)
+def conv1d_plan(n: int, plan: ConvPlan, dtype: torch.dtype) -> Conv1dPlan:
+    """The fused kernel's tiles for x [n] of ``dtype`` under ``plan``:
+    output chunks of ``lanes`` outputs cover the n + taps - 1 outputs
+    (those past x's last value take only the tail of the chunk before),
+    a tile the most chunks, in whole 16-chunk groups, up to
+    ``C1D_TILE_CHUNKS`` whose values take at most ``C1D_TILE_BYTES``;
+    ``C1D_BLOCKS_PER_SM`` blocks an SM, no more than the tiles. Raises
+    ``TypeError`` for an x the kernel does not take."""
+    if dtype not in INT_CODES:
+        raise TypeError(f"samd_conv1d kernel takes x of {_INT_NAMES}, "
+                        f"got {dtype}")
+    lanes = plan.lanes_per_chunk
+    n_out = n + plan.taps - 1
+    chunks = _cdiv(n_out, lanes)
+    tile = max(16, min(C1D_TILE_CHUNKS,
+                       C1D_TILE_BYTES // (lanes * dtype.itemsize)) // 16 * 16)
+    tiles = _cdiv(chunks, tile)
+    return Conv1dPlan(n, n_out, lanes, chunks, tile, tiles,
+                      min(tiles, C1D_BLOCKS_PER_SM * NUM_SMS))
+
+
+def samd_conv1d_plain(x: torch.Tensor, kernel: torch.Tensor,
+                      plan: ConvPlan) -> torch.Tensor:
+    """The op as the reference composes it: ``pack_conv_operand`` ->
+    :func:`samd_conv_chunks_plain` -> ``overlap_add``; x [..., n] int,
+    kernel [taps] int -> [..., n + taps - 1] int32."""
+    lanes = samd_conv_chunks_plain(pack_conv_operand(x, plan),
+                                   pack_conv_kernel(kernel, plan), plan)
+    return overlap_add(lanes, plan, x.shape[-1] + plan.taps - 1)
+
+
+def conv1d_launch_args(x: torch.Tensor, kernel: torch.Tensor,
+                       plan: ConvPlan):
+    """Check the operands of the fused conv1d kernel and make its launch:
+    the :func:`conv1d_plan`, the int32 output [n + taps - 1] and the
+    launcher's arguments. Takes x [n] and kernel [plan.taps] of integer
+    types of ``INT_CODES``, each of any stride, both on one CUDA device;
+    raises on anything else."""
+    words32(plan.fmt)
+    plan.validate()
+    if x.dim() != 1 or kernel.dim() != 1 or kernel.shape[0] != plan.taps:
+        raise ValueError(f"x must be [n] and kernel [{plan.taps}], got "
+                         f"{tuple(x.shape)}/{tuple(kernel.shape)}")
+    if kernel.dtype not in INT_CODES:
+        raise TypeError(f"kernel must be one of {_INT_NAMES}, got "
+                        f"{kernel.dtype}")
+    if kernel.device != x.device:
+        raise ValueError("x and kernel must share one CUDA device")
+    n = x.shape[0]
+    p = conv1d_plan(n, plan, x.dtype)
+    out = torch.empty(p.n_out, dtype=torch.int32, device=x.device)
+    fmt = plan.fmt
+    args = (x.data_ptr(), n, x.stride(0), kernel.data_ptr(),
+            kernel.stride(0), INT_CODES[kernel.dtype], out.data_ptr(), p.n_out, p.tile_chunks,
+            p.tiles, p.blocks, fmt.lane_width, p.lanes, plan.taps, fmt.bits,
+            int(fmt.signed), INT_CODES[x.dtype], stream_handle(x))
+    return p, out, args
+
+
+def samd_conv1d_cuda(x: torch.Tensor, kernel: torch.Tensor,
+                     plan: ConvPlan) -> torch.Tensor:
+    """Launch ``samd_conv1d_launch`` on the current stream -> int32
+    [n + taps - 1]; operands as :func:`conv1d_launch_args`. One launch
+    and no other device op; raises on bad operands and on a failed build
+    or launch."""
+    p, out, args = conv1d_launch_args(x, kernel, plan)
+    if p.n_out:
+        _launch_on(x, CONV1D, *args)
+    return out
+
+
+def _launch_on(t: torch.Tensor, fn: str, *args) -> None:
+    """Launch ``fn``, entering ``t``'s device only when it is not the
+    current one."""
+    dev = t.get_device()
     if dev == torch.cuda.current_device():
-        KERNEL.launch(plan.launcher, *args)
+        KERNEL.launch(fn, *args)
     else:
         with torch.cuda.device(dev):
-            KERNEL.launch(plan.launcher, *args)
-    return out
+            KERNEL.launch(fn, *args)
 
 
 def samd_conv_chunks_plain(x_words: torch.Tensor, k_word: torch.Tensor,
@@ -275,9 +417,7 @@ def samd_conv_chunks_cuda(x_words: torch.Tensor, k_word: torch.Tensor,
     out = torch.empty((nc, lanes), dtype=torch.int32, device=dev)
     if nc == 0:
         return out
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            "samd_conv_chunks_launch", ptr(x_words), ptr(k_word), ptr(out),
-            nc, plan.fmt.lane_width, lanes, int(plan.fmt.signed),
-            stream_handle(x_words))
+    _launch_on(x_words, CHUNKS, ptr(x_words), ptr(k_word), ptr(out), nc,
+               plan.fmt.lane_width, lanes, int(plan.fmt.signed),
+               stream_handle(x_words))
     return out

@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
+import itertools  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -408,6 +410,196 @@ def test_conv_chunks_at_extreme_words():
                                       jnp.asarray(k), jplan), jplan)
             got = sc.samd_conv_chunks_plain(_t(EDGE_WORDS), _t(k), plan)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- kernels: the fused samd_conv1d's plain version and its tiling -----------
+
+CONV1D_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64]
+
+
+def _max_taps(bits, signed):
+    """The most taps a 32-bit plan of ``bits`` admits (its kernel fits
+    one word)."""
+    taps = 1
+    while True:
+        try:
+            conv.make_plan(bits, taps + 1, signed)
+        except ValueError:
+            return taps
+        taps += 1
+
+
+CONV1D_CASES = [(bits, signed, taps)
+                for bits, signed in [(2, True), (3, True), (4, True),
+                                     (2, False), (4, False)]
+                for taps in sorted({1, 2, 3, _max_taps(bits, signed)})]
+
+
+def _truncate(v, bits, signed):
+    """What packing keeps of integer values: their low ``bits`` bits,
+    read as two's complement when signed."""
+    v = np.asarray(v, np.int64) & ((1 << bits) - 1)
+    return v - ((v >> (bits - 1) & 1) << bits) if signed else v
+
+
+def _conv1d_lengths(plan):
+    return (1, plan.lanes_per_chunk - 1, plan.lanes_per_chunk, 997)
+
+
+def _conv1d_signal(bits, signed, taps, n, wide):
+    """Seeded x [n] and k [taps]: b-bit values, or (``wide``) any int8
+    values, which packing truncates to b bits."""
+    rng = np.random.default_rng([bits, int(signed), taps, n, int(wide)])
+    lo, hi = (-128, 127) if wide else overflow.input_range(bits, signed)
+    return (rng.integers(lo, hi + 1, size=n),
+            rng.integers(lo, hi + 1, size=taps))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_conv1d(bits, signed, taps, n, wide):
+    x, k = _conv1d_signal(bits, signed, taps, n, wide)
+    return np.asarray(jops.samd_conv1d(
+        jnp.asarray(x), jnp.asarray(k), jconv.make_plan(bits, taps, signed),
+        interpret=True))
+
+
+@pytest.mark.parametrize("dtype", CONV1D_DTYPES, ids=str)
+@pytest.mark.parametrize("bits,signed,taps", CONV1D_CASES)
+def test_samd_conv1d_plain_matches_reference(bits, signed, taps, dtype):
+    """The fused kernel's plain version (and ``ops.samd_conv1d`` on the
+    CPU) against the JAX op through the Pallas kernel in the interpreter
+    and ``np.convolve``, bit for bit, at n = 1, lanes - 1, lanes and a
+    ragged 997, with b-bit values and with int8 values out of the b-bit
+    range (truncated by packing, as the reference truncates them)."""
+    plan = conv.make_plan(bits, taps, signed)
+    for n in _conv1d_lengths(plan):
+        for wide in (False, True):
+            x, k = _conv1d_signal(bits, signed, taps, n, wide)
+            xt = torch.from_numpy(x).to(dtype)
+            kt = torch.from_numpy(k).to(dtype)
+            got = sc.samd_conv1d_plain(xt, kt, plan)
+            assert got.dtype == torch.int32 and got.shape == (n + taps - 1,)
+            np.testing.assert_array_equal(
+                got.numpy(), _jax_conv1d(bits, signed, taps, n, wide))
+            np.testing.assert_array_equal(
+                got.numpy(), np.convolve(_truncate(x, bits, signed),
+                                         _truncate(k, bits, signed)))
+            assert torch.equal(ops.samd_conv1d(xt, kt, plan), got)
+    # values far outside the b-bit range, where the dtype holds them
+    rng = np.random.default_rng(bits + taps)
+    big = min(torch.iinfo(dtype).max, 1 << 20)
+    x, k = rng.integers(-big, big, size=301), rng.integers(-big, big, taps)
+    got = sc.samd_conv1d_plain(torch.from_numpy(x).to(dtype),
+                               torch.from_numpy(k).to(dtype), plan)
+    np.testing.assert_array_equal(
+        got.numpy(), np.convolve(_truncate(x, bits, signed),
+                                 _truncate(k, bits, signed)))
+
+
+def _emulate_tiles(x, k, plan, p):
+    """The fused kernel's tiling in numpy: each tile packs its chunks and
+    its halo chunk, and output j takes lane j mod lanes of its chunk plus
+    lane j mod lanes + lanes of the chunk before (when j mod lanes <
+    taps - 1)."""
+    lanes, tl = p.lanes, plan.taps - 1
+    kw = conv.pack_conv_kernel(torch.from_numpy(k), plan)
+    out = np.full(p.n_out, -999, np.int64)
+    for b in range(p.tiles):
+        halo, first, stop, out_stop = p.tile(b)
+        vals = np.zeros((stop - halo) * lanes, np.int64)
+        seg = x[max(halo, 0) * lanes:stop * lanes]
+        vals[lanes if halo < 0 else 0:][:len(seg)] = seg
+        words = conv.pack_conv_operand(torch.from_numpy(vals), plan)
+        ext = sc.samd_conv_chunks_plain(words, kw, plan).numpy()
+        for j in range(first * lanes, out_stop):
+            c, t = divmod(j, lanes)
+            v = ext[c - halo, t]
+            if t < tl:
+                v += ext[c - halo - 1, t + lanes]
+            assert out[j] == -999, "an output written twice"
+            out[j] = v
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int64],
+                         ids=str)
+@pytest.mark.parametrize("bits,signed,taps", CONV1D_CASES)
+def test_conv1d_plan_tiles_the_signal(bits, signed, taps, dtype):
+    """``conv1d_plan``: the tiles cover every output chunk exactly once,
+    each tile's halo is the chunk before it (the zero chunk before the
+    first), the last tile ends at n + taps - 1, tiles are whole 16-chunk
+    groups of at most ``C1D_TILE_BYTES`` of values, taken by no more
+    persistent blocks than tiles; and the kernel's tiling, emulated on
+    the plan, gives ``np.convolve``."""
+    plan = conv.make_plan(bits, taps, signed)
+    lanes = plan.lanes_per_chunk
+    for n in (*_conv1d_lengths(plan), 16 * lanes + 1,
+              2 * sc.C1D_TILE_CHUNKS * lanes - taps + 2):
+        p = sc.conv1d_plan(n, plan, dtype)
+        assert p.n_out == n + taps - 1 and p.lanes == lanes
+        assert p.tile_chunks % 16 == 0
+        assert 16 <= p.tile_chunks <= sc.C1D_TILE_CHUNKS
+        assert p.tile_chunks * lanes * dtype.itemsize <= sc.C1D_TILE_BYTES
+        assert p.blocks == min(p.tiles, sc.C1D_BLOCKS_PER_SM * sc.NUM_SMS)
+        assert (p.chunks - 1) * lanes < p.n_out <= p.chunks * lanes
+        covered = []
+        for b in range(p.tiles):
+            halo, first, stop, out_stop = p.tile(b)
+            assert halo == first - 1 and stop > first
+            covered += range(first, stop)
+        assert covered == list(range(p.chunks))
+        assert p.tile(p.tiles - 1)[3] == n + taps - 1
+        rng = np.random.default_rng(n)
+        lo, hi = overflow.input_range(bits, signed)
+        x, k = rng.integers(lo, hi + 1, n), rng.integers(lo, hi + 1, taps)
+        np.testing.assert_array_equal(_emulate_tiles(x, k, plan, p),
+                                      np.convolve(x, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64, torch.bool,
+                                   torch.complex64])
+def test_conv1d_plan_refuses_what_the_kernel_does_not_take(dtype):
+    with pytest.raises(TypeError):
+        sc.conv1d_plan(100, conv.make_plan(4, 3, True), dtype)
+
+
+@pytest.mark.parametrize("dtype", CONV1D_DTYPES, ids=str)
+@pytest.mark.parametrize("signed", [True, False])
+def test_conv1d_plan_bounds_every_plans_tile(signed, dtype):
+    """Every 32-bit plan (1-32 bits, any taps it admits, up to 32
+    lanes at 1 bit) gets whole 16-chunk tiles, the most up to
+    ``C1D_TILE_CHUNKS`` within ``C1D_TILE_BYTES`` of values (16 chunks
+    at the least)."""
+    seen = set()
+    for bits, taps in itertools.product(range(1, 33), range(1, 33)):
+        try:
+            plan = conv.make_plan(bits, taps, signed)
+        except ValueError:
+            continue
+        lanes = plan.lanes_per_chunk
+        seen.add(lanes)
+        tile = sc.conv1d_plan(10_000, plan, dtype).tile_chunks
+        fit = sc.C1D_TILE_BYTES // (lanes * dtype.itemsize) // 16 * 16
+        assert tile % 16 == 0
+        assert tile == max(16, min(sc.C1D_TILE_CHUNKS, fit))
+    assert max(seen) == (32 if not signed else 16)
+
+
+@pytest.mark.parametrize("form", ["stepped", "expanded", "column"])
+def test_samd_conv1d_takes_a_strided_kernel(form):
+    """``ops.samd_conv1d`` on the CPU reads a kernel that is a view
+    (every other element, one value expanded, a column) as its values."""
+    plan = conv.make_plan(4, 3, True)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-8, 8, size=997))
+    big = torch.from_numpy(rng.integers(-8, 8, size=(6, 2)))
+    k = {"stepped": big.reshape(-1)[::2][:3],
+         "expanded": big[0, :1].expand(3),
+         "column": big[:3, 1]}[form]
+    assert not k.is_contiguous()
+    np.testing.assert_array_equal(ops.samd_conv1d(x, k, plan).numpy(),
+                                  np.convolve(x.numpy(), k.numpy()))
 
 
 # -- kernels: samd_conv2d -------------------------------------------------------

@@ -19,6 +19,8 @@ another order than its plain version: rtol = atol = 1e-4 of the output
 scale. The conv-chunks kernel is integer work and is compared bit for
 bit.
 """
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -644,9 +646,10 @@ def test_samd_conv2d_kernel_refuses_a_plan_not_its_own(cuda, forge):
 @pytest.mark.parametrize("bits,signed", [(2, True), (3, True), (4, True),
                                          (4, False)])
 def test_samd_conv1d_kernel_is_bit_exact(cuda, bits, signed):
-    """The four plans of the conv slice: the chunk lanes equal the plain
-    version's bit for bit (edge words included: top bit set, all ones),
-    and samd_conv1d equals a direct integer convolution."""
+    """The four plans of the conv slice: samd_conv1d (one fused launch)
+    equals a direct integer convolution, and the chunk launcher's lanes
+    equal the plain version's bit for bit (edge words included: top bit
+    set, all ones)."""
     gen = torch.Generator(device=cuda).manual_seed(bits + signed)
     plan = conv.make_plan(bits, 3, signed)
     lo, hi = overflow.input_range(bits, signed)
@@ -654,7 +657,7 @@ def test_samd_conv1d_kernel_is_bit_exact(cuda, bits, signed):
     k = torch.randint(lo, hi + 1, (3,), generator=gen, device=cuda)
     before = ops.launch_counts()
     got = ops.samd_conv1d(x, k, plan)
-    assert _moved(before, ops.launch_counts()) == {"samd_conv_chunks_launch"}
+    assert _moved(before, ops.launch_counts()) == {"samd_conv1d_launch"}
     want = torch.nn.functional.conv1d(
         x.double()[None, None], k.flip(0).double()[None, None],
         padding=2)[0, 0]
@@ -667,9 +670,148 @@ def test_samd_conv1d_kernel_is_bit_exact(cuda, bits, signed):
                                      dtype=torch.int32)])
     for kw in edge:
         kw = kw.reshape(1)
+        before = ops.launch_counts()
         assert torch.equal(
             sc.samd_conv_chunks_cuda(words.to(cuda), kw.to(cuda), plan).cpu(),
             sc.samd_conv_chunks_plain(words, kw, plan))
+        assert _moved(before, ops.launch_counts()) == {
+            "samd_conv_chunks_launch"}
+
+
+def _max_taps(bits, signed):
+    """The most taps a 32-bit plan of ``bits`` admits."""
+    taps = 1
+    while True:
+        try:
+            conv.make_plan(bits, taps + 1, signed)
+        except ValueError:
+            return taps
+        taps += 1
+
+
+CONV1D_CASES = [(bits, signed, taps)
+                for bits, signed in [(2, True), (3, True), (4, True),
+                                     (2, False), (4, False)]
+                for taps in sorted({1, 2, 3, _max_taps(bits, signed)})]
+CONV1D_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.int32,
+                 torch.int64]
+
+
+def _int_values(gen, dev, n, dtype, bound=1000):
+    """Seeded integers of ``dtype`` within +-``bound`` (the dtype's range
+    where narrower): mostly outside a plan's b bits, so packing
+    truncates them."""
+    info = torch.iinfo(dtype)
+    return torch.randint(max(info.min, -bound), min(info.max, bound) + 1,
+                         (n,), generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CONV1D_DTYPES, ids=str)
+@pytest.mark.parametrize("bits,signed,taps", CONV1D_CASES)
+def test_samd_conv1d_fused_kernel_matches_plain(cuda, bits, signed, taps,
+                                                dtype):
+    """The fused launcher against ``samd_conv1d_plain`` bit for bit, one
+    launch a call, at n = 1, lanes - 1, one tile +-1, 100,003 and
+    3,211,264 (conv1_2's activations), on x[1:] (not 16-byte aligned)
+    and x[::2] (strided), and with a kernel that is a view: every other
+    element of a longer tensor, or one value expanded (stride 0)."""
+    plan = conv.make_plan(bits, taps, signed)
+    lanes = plan.lanes_per_chunk
+    tile = sc.conv1d_plan(1, plan, dtype).tile_chunks * lanes
+    gen = torch.Generator(device=cuda).manual_seed(bits * 100 + taps)
+    k = _int_values(gen, cuda, taps, dtype, 9)
+    for n in (1, lanes - 1, tile - 1, tile, tile + 1, 100_003, 3_211_264):
+        x = _int_values(gen, cuda, n, dtype)
+        before = ops.launch_counts()
+        got = ops.samd_conv1d(x, k, plan)
+        assert _moved(before, ops.launch_counts()) == {"samd_conv1d_launch"}
+        assert got.shape == (n + taps - 1,) and got.dtype == torch.int32
+        assert torch.equal(got, sc.samd_conv1d_plain(x, k, plan)), n
+    xx = _int_values(gen, cuda, 2 * tile + 7, dtype)
+    for view in (xx[1:], xx[::2]):
+        assert torch.equal(ops.samd_conv1d(view, k, plan),
+                           sc.samd_conv1d_plain(view.contiguous(), k, plan))
+    kk = _int_values(gen, cuda, 2 * taps + 1, dtype, 9)
+    for kv in (kk[::2][:taps], kk.as_strided((taps,), (0,), 1)):
+        assert kv.stride(0) != 1
+        assert torch.equal(ops.samd_conv1d(xx, kv, plan),
+                           sc.samd_conv1d_plain(xx, kv.contiguous(), plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CONV1D_DTYPES, ids=str)
+def test_samd_conv1d_fused_kernel_takes_every_lane_count(cuda, dtype):
+    """One plan of each lane count a 32-bit word admits (1-32 lanes, the
+    widest at 1 bit, where ``conv1d_plan`` shrinks the tile to fit its
+    byte budget): the launcher takes the plan's tile and matches
+    ``samd_conv1d_plain`` over three tiles and a ragged end."""
+    plans = {}
+    for bits, signed, taps in itertools.product(range(1, 33), (True, False),
+                                                (1, 2, 3)):
+        try:
+            plan = conv.make_plan(bits, taps, signed)
+        except ValueError:
+            continue
+        plans.setdefault(plan.lanes_per_chunk, plan)
+    assert max(plans) == 32
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for lanes, plan in sorted(plans.items()):
+        tile = sc.conv1d_plan(1, plan, dtype).tile_chunks * lanes
+        x = _int_values(gen, cuda, 3 * tile + 5, dtype)
+        k = _int_values(gen, cuda, plan.taps, dtype, 9)
+        assert torch.equal(ops.samd_conv1d(x, k, plan),
+                           sc.samd_conv1d_plain(x, k, plan)), lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CONV1D_DTYPES, ids=str)
+def test_samd_conv1d_fused_kernel_at_edge_values(cuda, dtype):
+    """x and k made of the chunk test's edge values (wrapped into the
+    dtype) and the dtype's extremes, at every lane position of a chunk,
+    through every plan of ``CONV1D_CASES``."""
+    info = torch.iinfo(dtype)
+    edge = torch.tensor([0, 1, -1, -2 ** 31, 2 ** 31 - 1, -0x55555556,
+                         0x55555555, -65536, 65535, -0x77777778, info.min,
+                         info.max, info.min + 1, info.max - 1],
+                        dtype=torch.int64)
+    vals = edge.to(dtype)
+    x = torch.cat([vals.repeat_interleave(7), vals.repeat(5), vals]).to(cuda)
+    for bits, signed, taps in CONV1D_CASES:
+        plan = conv.make_plan(bits, taps, signed)
+        for i in range(len(vals) - taps + 1):
+            k = vals[i:i + taps].to(cuda)
+            assert torch.equal(ops.samd_conv1d(x, k, plan),
+                               sc.samd_conv1d_plain(x, k, plan))
+
+
+@pytest.mark.cuda
+def test_samd_conv1d_fused_kernel_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph replays to the eager result,
+    and to the new result after x is rewritten in place."""
+    plan = conv.make_plan(4, 3, True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _int_values(gen, cuda, 100_003, torch.int8)
+    k = _int_values(gen, cuda, 3, torch.int8, 8)
+    want = ops.samd_conv1d(x, k, plan)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.samd_conv1d(x, k, plan)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.graph(graph):
+        out = ops.samd_conv1d(x, k, plan)
+    assert _moved(before, ops.launch_counts()) == {"samd_conv1d_launch"}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    x.copy_(_int_values(gen, cuda, 100_003, torch.int8))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, sc.samd_conv1d_plain(x, k, plan))
+    assert not torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -684,6 +826,19 @@ def test_conv_kernels_refuse_what_they_do_not_take(cuda):
         ops.samd_conv2d(torch.randn(8, 5, 5, device=cuda), packed,
                         scale[:, :2], cfg)
     plan = conv.make_plan(2, 3, True)
+    k = torch.ones(3, dtype=torch.int64, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16, torch.bool):
+        with pytest.raises(TypeError):
+            ops.samd_conv1d(torch.zeros(8, device=cuda).to(dtype), k, plan)
+    with pytest.raises(TypeError):
+        ops.samd_conv1d(torch.zeros(8, dtype=torch.int32, device=cuda),
+                        k.float(), plan)
+    with pytest.raises(ValueError):
+        ops.samd_conv1d(torch.zeros(8, dtype=torch.int32, device=cuda),
+                        k[:2], plan)
+    with pytest.raises(ValueError):
+        ops.samd_conv1d(torch.zeros(2, 8, dtype=torch.int32, device=cuda),
+                        k, plan)
     with pytest.raises(TypeError):
         sc.samd_conv_chunks_cuda(torch.zeros(8, device=cuda),
                                  torch.zeros(1, dtype=torch.int32,

@@ -328,7 +328,8 @@ def test_launch_counts_are_per_launcher():
         "paged_decode_attention_launch",
         "paged_decode_ring_attention_launch",
         "paged_verify_attention_launch", "samd_conv2d_launch",
-        "samd_conv2d_im2col_launch", "samd_conv_chunks_launch"}
+        "samd_conv2d_im2col_launch", "samd_conv_chunks_launch",
+        "samd_conv1d_launch"}
     k = pa.KERNEL
     saved = dict(k.launches)
     try:
