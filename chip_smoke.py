@@ -98,7 +98,35 @@ Phases, any failure exits non-zero:
       (PyTorch packing, the chunk launcher, the strided overlap-add; in
       turns unfused, fused, fused, unfused), the chunk launcher alone and
       ``F.conv1d`` in f32 on the pre-cast signal, each beside its bytes
-      bound, its host-paced time and the wrapper's host time per call.
+      bound, its host-paced time and the wrapper's host time per call;
+  (g) serve (c)'s bf16-KV engine through the async front door
+      (``AsyncServer``, the engine's tick in a worker thread,
+      ``max_queue=64``): warm it through a server, measure capacity as
+      the median of three closed-loop bursts of (c)'s 16 requests
+      (``capacity_rps``, ``capacity_tokens_per_s``, the spread printed),
+      serve the same burst through ``AsyncServer`` with the step inline
+      and in a worker thread in turns (inline, thread, thread, inline:
+      the tick medians and tokens/s of each side), serve 80 requests of
+      the same shape directly for their reference tokens, then, with the
+      launch counts reset just before them, three open-loop rows, each on
+      a fresh server after
+      ``engine.reset()``, with Poisson arrivals: 0.5x capacity_rps with
+      the ``slo`` policy (40 requests), 2.5x ``slo`` (80) and 2.5x
+      ``fifo`` with no SLO (80); the SLO is 30 / capacity_rps s. Each row
+      must conserve requests (completed + rejected == offered, the
+      server's completed counter alike), stream each request's own
+      tokens, give a Prometheus snapshot that parses with the server's
+      counters, stamp every completed request in order (submit <= admit
+      <= first token <= retire), give the direct run's tokens (or part
+      at a near-tie, as (e) checks) and launch exactly the matmul's
+      split-K and tile launchers and decode attention; each row is
+      bounded (``FRONT_DOOR_TIMEOUT_S``), so a serve loop that died exits
+      non-zero. Each row prints p50 / p99 TTFT, TPOT and e2e, refusals by
+      code, deadline misses, goodput, the tick median with the step in a
+      thread beside (c)'s inline one, the arrival lag (submit time minus
+      scheduled arrival) p50 / p99, the snapshot's key count and its
+      launch counts while it served; the kernels line's ``(front door
+      ...)`` entries carry the sum of the three rows' launches only.
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -108,6 +136,7 @@ no result.
 """
 from __future__ import annotations
 
+import asyncio
 import functools
 import json
 import subprocess
@@ -167,6 +196,19 @@ MATMUL_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]
 # (b)'s rows of x: decode, run B's verify (8 x 3), both sides of the
 # split-K / tile switch (32), and a prefill
 MATMUL_CHECK_M = (8, 24, 32, 33, 1024)
+# (g) the async front door over (c)'s bf16-KV engine: open-loop rows of
+# (load x capacity_rps, policy, requests), Poisson arrivals; the requests
+# are the first n of FRONT_DOOR_N from workload(FRONT_DOOR_SEED, ...)
+FRONT_DOOR_ROWS = ((0.5, "slo", 40), (2.5, "slo", 80), (2.5, "fifo", 80))
+FRONT_DOOR_N, FRONT_DOOR_SEED, FRONT_DOOR_QUEUE = 80, 18, 64
+# closed-loop bursts whose median is the capacity
+CAPACITY_BURSTS = 3
+# the burst through AsyncServer, the step inline (False) or in a thread
+THREAD_AB_ORDER = (False, True, True, False)
+# the SLO in units of 1 / capacity_rps (benchmarks/bench_openloop.py)
+SLO_TOKEN_BUDGET = 30.0
+# bound on one row's serving: a dead serve loop leaves every stream open
+FRONT_DOOR_TIMEOUT_S = 240
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -475,7 +517,7 @@ def check_ring_fold(dev, gen):
 
 # -- (c) and (e) serving -----------------------------------------------------
 
-def workload(seed):
+def workload(seed, n=N_REQUESTS):
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(seed)
@@ -483,7 +525,7 @@ def workload(seed):
                                                size=int(rng.integers(32, 257))
                                                ).astype(np.int32),
                     max_tokens=MAX_TOKENS)
-            for i in range(N_REQUESTS)]
+            for i in range(n)]
 
 
 def time_speculative_steps(eng):
@@ -590,16 +632,19 @@ def serve(label, dev, expect, seed=0, **engine_kw):
     return eng, summary, counts
 
 
-def check_greedy(eng, plain, dev):
-    """``eng``'s tokens against plain greedy decode's (``plain``, finished
-    requests of the same workload and target weights): identical, or
-    parting at a token where a full forward of the prefix on the card
-    gives a top-1/top-2 margin under MODEL_TOL of the largest logit."""
+def check_greedy(eng, plain, dev, reqs=None, against="plain decode"):
+    """The tokens of ``reqs`` (default: ``eng``'s finished requests)
+    against plain greedy decode's (``plain``, finished requests of the
+    same workload and target weights): identical, or parting at a token
+    where a full forward of the prefix on the card gives a top-1/top-2
+    margin under MODEL_TOL of the largest logit. Returns the count of
+    identical requests."""
     from repro_torch.models.model import forward
 
     want = {r.rid: (r.prompt, r.generated) for r in plain}
+    reqs = eng.finished if reqs is None else reqs
     identical, margins = 0, []
-    for r in eng.finished:
+    for r in reqs:
         prompt, ref = want[r.rid]
         j = next((i for i, (a, b) in enumerate(zip(ref, r.generated))
                   if a != b), None)
@@ -614,10 +659,10 @@ def check_greedy(eng, plain, dev):
         limit = MODEL_TOL * lg.abs().max().item()
         if margin > limit:
             raise AssertionError(
-                f"request {r.rid} parts from plain decode at token {j} "
+                f"request {r.rid} parts from {against} at token {j} "
                 f"with a top-1/top-2 margin {margin:.4g} > {limit:.4g}")
         margins.append(round(margin / lg.abs().max().item(), 5))
-    log(f"  greedy vs plain decode: {identical} of {len(want)} requests "
+    log(f"  greedy vs {against}: {identical} of {len(reqs)} requests "
         f"token-identical; the others part at near-ties (margin / max "
         f"logit {margins})")
     return identical
@@ -1691,6 +1736,260 @@ def run_vggb(dev, gen, timer, card, old=None):
     ]
 
 
+# -- (g) the async front door -------------------------------------------------
+
+def time_decode_ticks(eng):
+    """Wrap ``eng.step`` (in whichever thread runs it): returns a list
+    that gets the host ms of every step that decoded and ran no prefill,
+    as (c) counts its decode ticks."""
+    step = eng.step
+    ms = []
+
+    def timed():
+        st = eng.stats
+        before = (st["prefill_calls"], st["decode_steps"])
+        t = time.perf_counter()
+        out = step()  # ends in a host sync (the sampled ids)
+        if (st["prefill_calls"], st["decode_steps"]) == (before[0],
+                                                         before[1] + 1):
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.step = timed
+    return ms
+
+
+async def drive_open_loop(server, reqs, arrivals):
+    """Submit each request at its arrival (seconds after the start) and
+    collect every stream, within ``FRONT_DOOR_TIMEOUT_S``: a serve loop
+    that died leaves its streams open, so a timeout exits non-zero, with
+    the loop's own exception where it raised one. Returns (completed
+    requests, refusals, arrival lags in s: submit time minus scheduled
+    arrival)."""
+    from repro_torch.serving import RejectedRequest
+
+    completed, rejected, lags = [], [], []
+    t0 = server.clock()
+
+    async def one(req, at):
+        delay = at - (server.clock() - t0)
+        if delay > 0:
+            await asyncio.sleep(delay)
+        lags.append(server.clock() - t0 - at)
+        try:
+            stream = server.submit(req.prompt, req.max_tokens, rid=req.rid)
+        except RejectedRequest as rej:
+            rejected.append(rej)
+            return
+        toks = await stream.collect()
+        if toks != stream.request.generated:
+            raise AssertionError(f"request {req.rid}: the stream carried "
+                                 "other tokens than the request holds")
+        completed.append(stream.request)
+
+    await server.start()
+    try:
+        await asyncio.wait_for(
+            asyncio.gather(*(one(r, at) for r, at in zip(reqs, arrivals))),
+            FRONT_DOOR_TIMEOUT_S)
+    except asyncio.TimeoutError:
+        # stop() re-raises an exception that ended the serve loop
+        await asyncio.wait_for(server.stop(drain=False), 30)
+        raise AssertionError(f"front door: streams still open after "
+                             f"{FRONT_DOOR_TIMEOUT_S} s") from None
+    await asyncio.wait_for(server.stop(), FRONT_DOOR_TIMEOUT_S)
+    return completed, rejected, lags
+
+
+def front_door_row(eng, dev, reqs, direct, load, policy, capacity_rps,
+                   capacity_tps, seed, inline_tick_ms, expect):
+    """One open-loop row on a fresh server over ``eng`` (reset first):
+    Poisson arrivals at ``load`` x capacity, the step in a worker thread.
+    Asserts conservation, streams, the snapshot, the stamps, the tokens
+    against ``direct`` (``check_greedy``'s rule) and the launchers;
+    returns the printed summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import AsyncServer
+    from repro_torch.serving.metrics import (
+        parse_prometheus, percentile, summarize,
+    )
+
+    slo_s = SLO_TOKEN_BUDGET / capacity_rps
+    offered_rps = load * capacity_rps
+    eng.reset()
+    server = AsyncServer(eng, policy=policy, max_queue=FRONT_DOOR_QUEUE,
+                         default_slo_s=slo_s if policy == "slo" else None,
+                         capacity_tokens_per_s=capacity_tps,
+                         step_in_thread=True)
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / offered_rps, size=len(reqs)))
+    ticks = time_decode_ticks(eng)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        completed, rejected, lags = asyncio.run(
+            drive_open_loop(server, reqs, arrivals))
+    finally:
+        del eng.step  # the engine's own step again
+    wall = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    label = f"{load}x {policy}"
+    if len(completed) + len(rejected) != len(reqs):
+        raise AssertionError(f"{label}: {len(completed)} completed + "
+                             f"{len(rejected)} rejected != {len(reqs)}")
+    if server.counters["completed"] != len(completed):
+        raise AssertionError(f"{label}: counters {server.counters}")
+    snap = parse_prometheus(server.metrics_snapshot())
+    for k, v in server.counters.items():
+        if snap[f"samd_server_{k}_total"] != v:
+            raise AssertionError(f"{label}: snapshot {k} != {v}")
+    for r in completed:
+        if r.error or r.truncated or len(r.generated) != MAX_TOKENS:
+            raise AssertionError(f"{label}: request {r.rid}: error="
+                                 f"{r.error} truncated={r.truncated}")
+        if not r.t_submit <= r.t_admit <= r.t_first_token <= r.t_retire:
+            raise AssertionError(f"{label}: request {r.rid} stamps out of "
+                                 "order")
+    for name, c in counts.items():
+        if (c > 0) != (name in expect):
+            raise AssertionError(f"{label}: launcher {name} ran {c} times; "
+                                 f"expected {sorted(expect)} only")
+    identical = check_greedy(eng, direct, dev, reqs=completed,
+                             against="the direct engine run")
+    counts = {k: v for k, v in counts.items() if v}
+    summ = summarize(completed, slo_s=slo_s)
+    lag_ms = [v * 1e3 for v in lags]
+    row = dict(
+        row=label, offered_rps=round(offered_rps, 3),
+        slo_s=round(slo_s, 4), n_requests=len(reqs),
+        completed=len(completed), rejected=len(rejected),
+        rejected_by_code={c: sum(r.code == c for r in rejected)
+                          for c in ("queue_full", "infeasible", "slo")},
+        deadline_misses=summ["deadline_misses"],
+        **{k: (round(summ[k], 3) if summ[k] is not None else None)
+           for k in ("p50_ttft_ms", "p99_ttft_ms", "p50_tpot_ms",
+                     "p99_tpot_ms", "p50_e2e_ms", "p99_e2e_ms")},
+        goodput_tokens_per_s=round(
+            sum(len(r.generated) for r in completed) / wall, 1),
+        serve_s=round(wall, 3),
+        thread_tick_ms_median=(round(float(np.median(ticks)), 3)
+                               if ticks else None),
+        inline_tick_ms_median_c=inline_tick_ms,
+        decode_ticks=len(ticks),
+        arrival_lag_ms_p50=round(percentile(lag_ms, 50), 3),
+        arrival_lag_ms_p99=round(percentile(lag_ms, 99), 3),
+        token_identical=identical, snapshot_keys=len(snap),
+        launches=counts)
+    log(f"  front door ({label}): " + json.dumps(row))
+    return row
+
+
+def capacity_burst(eng):
+    """One closed-loop burst of ``workload(1)`` straight through the
+    engine, as ``benchmarks/bench_openloop.measure_capacity`` runs it;
+    resets the engine after. Returns (requests/s, tokens/s)."""
+    burst = workload(1)
+    t0 = time.perf_counter()
+    for r in burst:
+        eng.submit(r)
+    done = eng.run_to_completion()
+    dt = time.perf_counter() - t0
+    if len(done) != len(burst) or any(r.error for r in done):
+        raise AssertionError("front door: the capacity burst failed")
+    eng.reset()
+    return len(burst) / dt, sum(len(r.generated) for r in done) / dt
+
+
+def thread_against_inline(eng):
+    """The capacity burst through ``AsyncServer``, every request at time
+    0, with the step inline and in a worker thread in the turns of
+    ``THREAD_AB_ORDER``: the same work both ways in one call. Returns
+    each side's decode-tick median (ticks of both its runs pooled) and
+    its runs' tokens/s."""
+    from repro_torch.serving import AsyncServer
+
+    burst = workload(1)
+    out = {False: ([], []), True: ([], [])}
+    for in_thread in THREAD_AB_ORDER:
+        ticks = time_decode_ticks(eng)
+        t0 = time.perf_counter()
+        try:
+            done, rejected, _ = asyncio.run(drive_open_loop(
+                AsyncServer(eng, max_queue=FRONT_DOOR_QUEUE,
+                            step_in_thread=in_thread),
+                burst, [0.0] * len(burst)))
+        finally:
+            del eng.step
+        dt = time.perf_counter() - t0
+        if rejected or len(done) != len(burst):
+            raise AssertionError("front door: the A/B burst lost requests")
+        out[in_thread][0].extend(ticks)
+        out[in_thread][1].append(
+            round(sum(len(r.generated) for r in done) / dt, 1))
+        eng.reset()
+    res = {}
+    for in_thread, side in ((False, "inline"), (True, "thread")):
+        ticks, tps = out[in_thread]
+        res[f"{side}_tick_ms_median"] = round(float(np.median(ticks)), 3)
+        res[f"{side}_decode_ticks"] = len(ticks)
+        res[f"{side}_tokens_per_s"] = tps
+    res["order"] = ["thread" if t else "inline" for t in THREAD_AB_ORDER]
+    log("  step inline against in a thread (the capacity burst through "
+        "AsyncServer): " + json.dumps(res))
+    return res
+
+
+def run_front_door(eng, dev, inline_tick_ms, expect):
+    """(g): warm ``eng`` through a server, measure capacity (the median
+    of ``CAPACITY_BURSTS`` closed-loop bursts of ``workload(1)``), serve
+    that burst through a server with the step inline and in a thread in
+    turns, serve ``FRONT_DOOR_N`` requests directly for their reference
+    tokens, then the open-loop rows of ``FRONT_DOOR_ROWS``, with the
+    launch counts reset just before them. Returns (summary, the sum of
+    the rows' launch counts, each taken while its row served)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import AsyncServer
+
+    eng.reset()
+    warm = workload(FRONT_DOOR_SEED)[:2]
+    asyncio.run(drive_open_loop(AsyncServer(eng, step_in_thread=True),
+                                warm, [0.0, 0.0]))
+    eng.reset()
+    bursts = [capacity_burst(eng) for _ in range(CAPACITY_BURSTS)]
+    capacity_rps = float(np.median([rps for rps, _ in bursts]))
+    capacity_tps = float(np.median([tps for _, tps in bursts]))
+    log(f"  capacity (median of {CAPACITY_BURSTS} closed-loop bursts of "
+        f"{len(workload(1))} requests): {capacity_rps:.3f} requests/s, "
+        f"{capacity_tps:.1f} tokens/s (bursts: "
+        f"{[round(t, 1) for _, t in bursts]} tokens/s); "
+        f"SLO {SLO_TOKEN_BUDGET / capacity_rps:.3f} s")
+    ab = thread_against_inline(eng)
+    reqs = workload(FRONT_DOOR_SEED, FRONT_DOOR_N)
+    for r in workload(FRONT_DOOR_SEED, FRONT_DOOR_N):
+        eng.submit(r)
+    direct = eng.run_to_completion()
+    if len(direct) != FRONT_DOOR_N or any(r.error for r in direct):
+        raise AssertionError("front door: the direct run failed")
+    # the main path: the open-loop rows through AsyncServer; each row's
+    # launches are counted while it serves, so the forwards that check a
+    # near-tie after the row are not among them
+    ops.reset_launch_counts()
+    rows = [front_door_row(eng, dev, reqs[:n], direct, load, policy,
+                           capacity_rps, capacity_tps, FRONT_DOOR_SEED,
+                           inline_tick_ms, expect)
+            for load, policy, n in FRONT_DOOR_ROWS]
+    counts = {k: sum(row["launches"].get(k, 0) for row in rows)
+              for k in ops.launch_counts()}
+    for name, c in counts.items():
+        if (c > 0) != (name in expect):
+            raise AssertionError(f"(g): launcher {name} ran {c} times; "
+                                 f"expected {sorted(expect)} only")
+    return dict(capacity_rps=capacity_rps,
+                capacity_tokens_per_s=capacity_tps,
+                capacity_bursts_tokens_per_s=[t for _, t in bursts],
+                thread_against_inline=ab, rows=rows), counts
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -1817,6 +2116,7 @@ def main() -> int:
     # run's own launch count, timed on that run's own weights and pools;
     # the matmul's times are device times (CUDA graph), its yardstick's too
     kernels = []
+    decode_t = {}  # the split-K timing row of each run, for (g) too
     for key, label, bits in (("bf16", "bf16 KV run", 4),
                              ("int8", "int8 KV run", 4),
                              ("A", "run A draft", 8),
@@ -1824,8 +2124,8 @@ def main() -> int:
         eng, _, counts = runs[key]
         params = eng._draft_params if eng.speculative else eng.params
         m = eng.max_batch
-        mm_t = time_samd_matmul(dev, timer, params, f"{label}, M={m}", m,
-                                old)
+        mm_t = decode_t[key] = time_samd_matmul(
+            dev, timer, params, f"{label}, M={m}", m, old)
         kernels.append(kernel_entry(
             f"samd_matmul split-K ({label}, M={m})", MM_SOURCE,
             "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
@@ -1844,8 +2144,8 @@ def main() -> int:
         f"verify M={m}, 4-bit, mean over the 7 linears of 24 layers; "
         "launches: run B's split-K total (draft and verify)"))
     # prefill: (c)'s 4-bit weights (the same seed as run B's target)
-    mm_t = time_samd_matmul(dev, timer, runs["bf16"][0].params,
-                            "prefill, M=1024", 1024, old)
+    prefill_t = mm_t = time_samd_matmul(dev, timer, runs["bf16"][0].params,
+                                        "prefill, M=1024", 1024, old)
     for key, label in (("bf16", "bf16 KV run"), ("int8", "int8 KV run"),
                        ("B", "run B")):
         kernels.append(kernel_entry(
@@ -1855,10 +2155,11 @@ def main() -> int:
             "M=1024, 4-bit, mean over the 7 linears of 24 layers (the "
             "run's prefills are 8 x its prompt bucket rows)"))
     old_pa = OldAttention(args.old_attention) if args.old_attention else None
+    attn_t = {}
     for fmt in ("bf16", "int8"):
         eng, _, counts = runs[fmt]
-        pa_t = time_paged_attention(eng, dev, timer, fmt == "int8", gen,
-                                    old_pa)
+        pa_t = attn_t[fmt] = time_paged_attention(eng, dev, timer,
+                                                  fmt == "int8", gen, old_pa)
         kernels.append(kernel_entry(
             f"paged_decode_attention ({fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:294", counts[DECODE],
@@ -1888,7 +2189,36 @@ def main() -> int:
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
     kernels += run_vggb(dev, gen, timer, card,
                         OldConv(args.old_conv) if args.old_conv else None)
+
+    log(f"(g) the async front door over (c)'s bf16-KV engine (card: "
+        f"{card})")
+    eng, summary, _ = runs["bf16"]
+    front, counts = run_front_door(eng, dev,
+                                   summary["decode_tick_ms_median"],
+                                   {SPLITK, TILE, DECODE})
+    # (g)'s launchers run (c)'s bf16-KV engine at (c)'s shapes: their
+    # numbers are (b)'s and (d)'s for that run, their launches the
+    # open-loop rows' own
+    kernels.append(kernel_entry(
+        f"samd_matmul split-K (front door, M={eng.max_batch})", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
+        err_mm[4, "temporary", True, eng.max_batch], decode_t["bf16"],
+        "(g): (c)'s bf16 KV engine through AsyncServer; launches of the "
+        "three open-loop rows; numbers of the bf16 KV run's decode row"))
+    kernels.append(kernel_entry(
+        "samd_matmul tile (front door prefill)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts[TILE],
+        err_mm[4, "temporary", True, 1024], prefill_t,
+        "(g): prefills of 8 x bucket rows; launches of the three open-loop "
+        "rows; numbers of the M=1024 row"))
+    kernels.append(kernel_entry(
+        "paged_decode_attention (front door, bf16 KV)", PA_SOURCE,
+        "src/repro/kernels/paged_attention.py:294", counts[DECODE],
+        err_pa["bf16", 1], attn_t["bf16"],
+        "(g): launches of the three open-loop rows; numbers of (c)'s bf16 "
+        "KV decode row"))
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
+    log("front door: " + json.dumps(front))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

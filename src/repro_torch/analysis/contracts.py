@@ -15,6 +15,9 @@ before an unsafe configuration reaches a kernel.
 * Conv as multiplication (``samd_conv1d``) runs the whole pipeline in
   the lanes: pack, sign-extend, ``taps`` products a lane, the borrow
   fixup, a wide read.
+
+``serving.engine.ServingEngine(verify=True)`` runs the matmul check at
+admission over ``packed_reduction_depths`` of its packed weights.
 """
 from __future__ import annotations
 
@@ -35,6 +38,27 @@ from repro_torch.analysis.lanes import (
 from repro_torch.core.conv import ConvPlan
 from repro_torch.core.samd import SAMDFormat
 from repro_torch.quant.config import QuantConfig
+
+
+def packed_reduction_depths(params) -> list[int]:
+    """Reduction depths of the ``QuantizedTensor`` leaves present in a
+    packed parameter tree (nested dicts and lists), sorted."""
+    from repro_torch.models.layers import QuantizedTensor
+
+    depths = set()
+
+    def visit(node):
+        if isinstance(node, QuantizedTensor):
+            depths.add(int(node.k))
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                visit(v)
+
+    visit(params)
+    return sorted(depths)
 
 
 def assert_safe(verdict: Verdict) -> Verdict:

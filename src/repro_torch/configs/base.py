@@ -1,4 +1,5 @@
-"""Architecture configuration (the dense subset of ``repro.configs.base``)."""
+"""Architecture and shape configuration (the dense subset of
+``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,6 +38,21 @@ class ArchConfig:
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    @property
+    def uses_attention(self) -> bool:
+        return self.n_heads > 0
+
     def scaled(self, **overrides) -> "ArchConfig":
         """Reduced config of the same family (for CPU smoke tests)."""
         return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (the reference's fields): ``kind`` is
+    'train', 'prefill' or 'decode'."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str

@@ -1,1 +1,1 @@
-"""Serving step functions."""
+"""Serving step functions and the analytic cost model."""

@@ -26,6 +26,15 @@ scheduling contract is the reference's:
   * ``prefix_retain=N`` parks up to N refcount-0 prefix pages in an LRU
     pool so sharing survives non-overlapping residencies;
   * ``max_queue`` bounds the queue (overflow is rejected with ``error``);
+  * every request carries four stamps on the engine's ``clock``
+    (``time.monotonic`` unless one is given): ``t_submit``, ``t_admit``,
+    ``t_first_token`` and ``t_retire``, the last two taken after the host
+    read of the tokens they time; ``serving/server.py`` derives TTFT,
+    TPOT and e2e from them;
+  * ``verify=True`` (default) certifies every (bits, K) the packed
+    weights accumulate over, target and draft, with the lane-safety
+    analysis before the engine serves: an unsafe quantization raises
+    ``LaneSafetyError`` in the constructor;
   * ``speculative=K`` > 0 runs one self-speculative tick instead of the
     decode step: the draft (the same weights SAMD-packed by
     ``draft_quant``, default 4-bit; a quantized target is its own draft
@@ -38,8 +47,8 @@ scheduling contract is the reference's:
     verifies by rejection sampling. Lookahead pages come from the
     reservation or the free list and never preempt (``_spec_lens``).
 
-Not ported yet: the per-slot KV ring (``kv_mode="ring"``), the per-row
-reference decode and the admission-time lane-safety check (``verify=``).
+Not ported yet: the per-slot KV ring (``kv_mode="ring"``; ``kv_mode``
+reads ``"paged"``) and the per-row reference decode.
 
 The KV pools (``self.cache``) are written in place by every step (the
 reference donates them to its jitted steps instead).
@@ -48,11 +57,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.model import (
@@ -77,6 +88,15 @@ class Request:
     error: Optional[str] = None
     # set while a preempted request waits for recompute-resume
     resume_prompt: Optional[np.ndarray] = None
+    # stamps on the engine's clock, None until the event happens:
+    #   t_submit      ``submit`` (arrival at the engine)
+    #   t_admit       first admission (prefill handoff); kept on resume
+    #   t_first_token first generated token (prefill's sample)
+    #   t_retire      retirement, any outcome (done/truncated/rejected)
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_retire: Optional[float] = None
     _seq: int = -1
 
     @property
@@ -195,6 +215,12 @@ class PageAllocator:
                     freed.append(p)
         return freed
 
+    def reset(self) -> None:
+        self._free = list(range(self.num_pages - 1, -1, -1))
+        self._retained.clear()
+        self.refcount[:] = 0
+        self.reserved = 0
+
 
 def _bucket_len(max_prompt: int, max_len: int) -> int:
     """Smallest power-of-two prefill bucket >= the longest admitted prompt
@@ -218,13 +244,16 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  speculative: int = 0,
                  draft_quant: QuantConfig | None = None,
+                 verify: bool = True,
+                 clock=None,
                  device="cuda"):
         """``params`` are unquantized weights (``build_template`` layout;
         random from ``seed`` when None); ``quant`` packs them here, and
         with ``speculative`` > 0 and an unquantized target, ``draft_quant``
         (default ``QuantConfig(bits=4)``; ``enabled=False`` shares the
         target's weights) packs the draft from them too. A quantized
-        target is its own draft: ``draft_quant`` with it raises."""
+        target is its own draft: ``draft_quant`` with it raises.
+        ``clock`` (default ``time.monotonic``) stamps the requests."""
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if speculative < 0:
@@ -233,6 +262,7 @@ class ServingEngine:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.kv_mode = "paged"
         self.max_batch = max_batch
         self.max_len = max_len
         self.temperature = float(temperature)
@@ -272,6 +302,8 @@ class ServingEngine:
                 cfg, max_len, page_size, self.speculative)
             self._verify_step = steps_mod.make_speculative_verify_step(
                 cfg, max_len, page_size, self.speculative)
+        if verify:
+            self._verify_lane_safety()
         self._decode_step = steps_mod.make_paged_ragged_serve_step(
             cfg, max_len, page_size)
         self._prefill_step = steps_mod.make_paged_prefill_step(
@@ -279,6 +311,7 @@ class ServingEngine:
         self.cache = self._init_cache()
         self._gen = torch.Generator(device=self.device).manual_seed(
             seed ^ 0x5EED)
+        self.clock = clock if clock is not None else time.monotonic
         self.max_queue = max_queue
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Optional[Request]] = [None] * max_batch
@@ -325,6 +358,25 @@ class ServingEngine:
             "tick_budget_exhausted": 0,  # stragglers errored at max_ticks
             "peak_pages_used": 0,       # max pages with refcount > 0
         }
+
+    def _verify_lane_safety(self):
+        """Certify every (QuantConfig, reduction depth) the packed weights
+        accumulate over, the target's and (when speculative) a separately
+        packed draft's; raises ``LaneSafetyError`` on an unsafe one."""
+        checks = []
+        if self.quant.enabled:
+            checks.append((self.quant, self.params))
+        dq = getattr(self, "draft_quant", None)
+        if (
+            self.speculative
+            and dq is not None
+            and dq.enabled
+            and dq is not self.quant
+        ):
+            checks.append((dq, self._draft_params))
+        for qcfg, tree in checks:
+            for k in contracts.packed_reduction_depths(tree):
+                contracts.assert_safe(contracts.check_matmul_config(qcfg, k))
 
     def _init_cache(self):
         return init_paged_cache(self.cfg, self.num_pages, self.page_size,
@@ -427,6 +479,8 @@ class ServingEngine:
     def submit(self, req: Request):
         """Enqueue ``req``, or reject it with ``error`` set when
         ``max_queue`` requests already wait."""
+        if req.t_submit is None:
+            req.t_submit = self.clock()
         if (self.max_queue is not None
                 and len(self.queue) >= self.max_queue):
             self.stats["rejected_queue_full"] += 1
@@ -440,6 +494,8 @@ class ServingEngine:
 
     def _reject(self, req: Request, reason: str):
         req.error = reason
+        if req.t_retire is None:
+            req.t_retire = self.clock()
         self.finished.append(req)
         self.stats["rejected"] += 1
 
@@ -601,6 +657,8 @@ class ServingEngine:
         if req._seq < 0:
             self._seq_counter += 1
             req._seq = self._seq_counter
+        if req.t_admit is None:  # resume keeps the first admission stamp
+            req.t_admit = self.clock()
         if req.resume_prompt is not None:
             req.resume_prompt = None
             self.slots[slot] = req
@@ -610,8 +668,11 @@ class ServingEngine:
             self._slot_seq[slot] = req._seq
             return
         req.generated.append(tok0)
+        if req.t_first_token is None:
+            req.t_first_token = self.clock()
         if req.done:
             self._release_pages(slot)
+            req.t_retire = self.clock()
             self.finished.append(req)
             return
         self.slots[slot] = req
@@ -649,6 +710,8 @@ class ServingEngine:
 
     def _retire_slot(self, i: int, req: Request):
         self._release_pages(i)
+        if req.t_retire is None:
+            req.t_retire = self.clock()
         self.finished.append(req)
         self.slots[i] = None
         self.active[i] = False
@@ -878,5 +941,33 @@ class ServingEngine:
                 req = self.queue.popleft()
                 req.error = reason
                 self.stats["tick_budget_exhausted"] += 1
+                if req.t_retire is None:
+                    req.t_retire = self.clock()
                 self.finished.append(req)
         return self.finished
+
+    def reset(self):
+        """Clear every request, slot, page and counter, and start a fresh
+        KV pool; the steps and weights stay (benchmark warm-up, then a
+        measured run without building anything again)."""
+        self.cache = self._init_cache()
+        self.queue.clear()
+        self.slots = [None] * self.max_batch
+        self.slot_pos[:] = 0
+        self.slot_next[:] = 0
+        self.active[:] = False
+        self.finished = []
+        self._allocator.reset()
+        self.page_table[:] = -1
+        self.slot_pages[:] = 0
+        self.slot_reserved[:] = 0
+        self._slot_seq[:] = 0
+        self._seq_counter = 0
+        self._prefix_index.clear()
+        self._page_key.clear()
+        self._page_parent.clear()
+        self._page_block.clear()
+        self._prefix_children.clear()
+        self._prefix_ready.clear()
+        for k in self.stats:
+            self.stats[k] = 0

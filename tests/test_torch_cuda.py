@@ -453,6 +453,62 @@ def test_speculative_serving_on_card_launches_every_kernel(cuda, kv_bits):
 
 
 @pytest.mark.cuda
+def test_front_door_streams_a_direct_runs_tokens_from_a_pool_thread(
+        cuda, monkeypatch):
+    """``AsyncServer`` over a 4-bit engine on the card with the tick in a
+    worker thread (``step_in_thread=True``): every stream carries the
+    tokens a direct run of the same engine gives (``reset()`` between;
+    the same batches form, so the same kernels run on the same shapes),
+    the split-K (decode), tile (prefill) and decode-attention launchers
+    run from the pool thread, and no plain version runs."""
+    import asyncio
+
+    from repro_torch.serving import AsyncServer, Request, ServingEngine
+
+    cfg = smoke_config("qwen3-14b").scaled(d_model=256, head_dim=64,
+                                           d_ff=512, vocab=256)
+    eng = ServingEngine(cfg, None, quant=QuantConfig(bits=4), max_batch=4,
+                        max_len=64, page_size=8, device=cuda)
+    prompts = [(torch.arange(5 + 3 * i) * 7 + i).numpy() % 256
+               for i in range(6)]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_tokens=10))
+    direct = {r.rid: r.generated for r in eng.run_to_completion()}
+    eng.reset()
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(mm, "samd_matmul_plain", plain)
+    monkeypatch.setattr(pa, "paged_decode_attention_plain", plain)
+    ops.reset_launch_counts()
+    server = AsyncServer(eng, step_in_thread=True, max_queue=8)
+
+    async def run():
+        await server.start()
+        streams = [server.submit(p, 10, rid=i) for i, p in enumerate(prompts)]
+        outs = await asyncio.wait_for(
+            asyncio.gather(*(s.collect() for s in streams)), 300)
+        await asyncio.wait_for(server.stop(), 300)
+        return outs
+
+    outs = asyncio.run(run())
+    counts = ops.launch_counts()
+    assert dict(enumerate(outs)) == direct
+    assert server.counters["completed"] == 6
+    for fn in ("samd_matmul_splitk_launch", "samd_matmul_tile_launch",
+               "paged_decode_attention_launch"):
+        assert counts[fn] > 0, counts
+    assert sum(counts.values()) == sum(
+        counts[fn] for fn in ("samd_matmul_splitk_launch",
+                              "samd_matmul_tile_launch",
+                              "paged_decode_attention_launch")), counts
+    for req in server.finished:
+        assert (req.t_submit <= req.t_admit <= req.t_first_token
+                <= req.t_retire)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv_bits", [None, 8])
 def test_forward_on_card_matches_plain_on_cpu(cuda, kv_bits):
     """GQA smoke model, 4-bit weights: prefill then a fused decode token,
