@@ -128,6 +128,38 @@ Phases, any failure exits non-zero:
       launch counts while it served; the kernels line's ``(front door
       ...)`` entries carry the sum of the three rows' launches only.
 
+  (h) the engine's other modes and the rest of QuantConfig: (h1) (c)'s
+      4-bit bf16-KV engine (full width and depth, the same 16 requests) in
+      ``kv_mode="ring"`` and with ``paged_attn="gather"``, and (h2) with
+      ``decode_mode="per_row"`` on the first 4 requests, 8 tokens each;
+      each gives (c)'s fused paged run's tokens (or parts at a near-tie,
+      as (e) checks), launches the matmul's split-K and tile launchers
+      and no attention kernel, and prints its tick median and tokens/s
+      beside (c)'s (the per-row run's per-row forwards counted); (h3)
+      full-width qwen3-14b (40 layers, seeded random weights, 4-bit with
+      ``quantize_embeddings=True``, so its untied LM head [5120, 151936]
+      runs the split-K launcher, bf16 KV, max_batch 8, max_len 512) serves
+      (c)'s 16 requests, its logits held against the plain versions run on
+      the card (``plain_versions``: the wrappers' CPU branch on the card's
+      tensors) within ``MODEL_TOL``, and what that check sees with the
+      kernels' scales x1.02 printed beside; (b) checks the matmul at its
+      five (K, N) shapes, LM head included, at M = 8 and 1024 (element
+      by element and by relative RMS) and its attention shape (G = 5, dh
+      = 128), and its decode linears, LM head and a prefill are timed as
+      in (d), dense bf16 ``torch.matmul`` and the bytes bound beside;
+      (h4) the same model
+      with ``group_size=128`` serves 4 requests through the dequantize
+      route (no matmul launcher runs; decode attention does), with its
+      tick and peak memory; (h5) every launch plan of (b)-(h) (recorded
+      from the launchers' arguments) has a shared-memory estimate
+      (``analysis.contracts``) at least the kernel's own (its source's
+      ``*_smem_bytes`` query: the static bytes the runtime reports for the
+      compiled kernel plus the dynamic bytes its launcher passes) and
+      within 227 KB; ``act_bits=8`` is refused at engine
+      construction exactly where K x 2^(bits-1) x 2^7 passes 2^24
+      (qwen1.5-0.5b at 4 and 8 bits, qwen3-14b at 4 bits); and
+      ``python -m repro_torch.analysis.certify`` reports 0 unsafe.
+
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -137,11 +169,14 @@ no result.
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextlib
 import functools
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -155,12 +190,25 @@ F32_OPS_PER_S = 67e12
 # to bf16 (8 significant bits), in different orders, so they may land one
 # or two bf16 rounding steps apart: rtol = atol = 1e-2 of the output scale
 BF16_TOL = 1e-2
+# the same, as the RMS of kernel - plain over the RMS of plain: the products
+# are exact and both sums f32, so outputs differ only where the two sums
+# round to neighbouring bf16 values, one step (2^-8 to 2^-7 of the value)
+# on a few elements; a kernel off by a systematic 1% reads 1e-2
+BF16_RMS_TOL = 2.0 ** -8
 # f32 conv kernel vs plain and vs F.conv2d: the same f32 products summed in
 # another order (up to 4608 terms at conv5): max |kernel - reference| <=
 # 1e-4 x max |reference|
 CONV_F32_TOL = 1e-4
-# full model through the kernels vs through the plain versions on the CPU:
-# 24 bf16 layers of such differences: 5e-2 of the largest logit
+# full model through the kernels vs through the plain versions (on the CPU,
+# or for qwen3-14b on the card): bf16 differences of that size compound
+# over the layers. 5e-2 of the largest logit. Readings on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6): sound runs 1.3-1.7%
+# (qwen1.5-0.5b, 24 layers) and 4.2-4.3% (qwen3-14b, 40 layers, where (b)
+# reads a relative RMS of 1.5e-5 to 5e-5 at every linear shape); with the
+# kernels' scales x1.02 (``scale_controls``) 9.2-9.7% for every block
+# linear, which fails, but 4.5-5.2% for one wd or the LM head, which
+# this check cannot tell from sound. It catches a wrong route, layout or
+# cache; an error of a few percent in one kernel is (b)'s BF16_RMS_TOL
 MODEL_TOL = 5e-2
 SERVE = dict(max_batch=8, max_len=512, page_size=16)
 N_REQUESTS, MAX_TOKENS = 16, 32
@@ -195,7 +243,22 @@ SPEC_RUNS = (("A", "bf16", 4), ("B", "int8", 2))
 MATMUL_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]
 # (b)'s rows of x: decode, run B's verify (8 x 3), both sides of the
 # split-K / tile switch (32), and a prefill
-MATMUL_CHECK_M = (8, 24, 32, 33, 1024)
+MATMUL_CHECK_M = (1, 8, 24, 32, 33, 1024)
+# (b)'s qwen3-14b shapes, 4-bit: (K, N) of the untied LM head, wq / wo,
+# wk / wv, wg / wu and wd, at decode (M = 8) and a prefill (M = 1024)
+QWEN3_MATMUL_SHAPES = ((5120, 151936), (5120, 5120), (5120, 1024),
+                       (5120, 17408), (17408, 5120))
+QWEN3_CHECK_M = (8, 1024)
+# (h3) relative changes of the kernels' scales whose effect on the logits
+# against the plain versions is printed beside MODEL_TOL
+SCALE_CONTROL = 1.02
+# (h2) the per-row path: the first n of (c)'s requests, this many tokens
+PER_ROW_REQUESTS, PER_ROW_TOKENS = 4, 8
+# (h4) qwen3-14b with group scales through the dequantize route
+GROUP_SIZE, GROUP_REQUESTS, GROUP_TOKENS = 128, 4, 8
+# (h5) activation bits of the lane-safety check at engine construction,
+# and the largest integer float32 holds exactly
+ACT_BITS, F32_EXACT = 8, 1 << 24
 # (g) the async front door over (c)'s bf16-KV engine: open-loop rows of
 # (load x capacity_rps, policy, requests), Poisson arrivals; the requests
 # are the first n of FRONT_DOOR_N from workload(FRONT_DOOR_SEED, ...)
@@ -342,6 +405,67 @@ def check_samd_matmul(dev, gen):
         f"{max(errs.values()):.4g}; per M: " + json.dumps(
             {m: max(e for key, e in errs.items() if key[3] == m)
              for m in MATMUL_CHECK_M}))
+    return errs
+
+
+def rel_rms(got, want):
+    """RMS of ``got - want`` over the RMS of ``want``."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def check_qwen3_shapes(dev, gen):
+    """(b) at qwen3-14b's shapes: the 4-bit matmul at every linear's (K,
+    N) and the LM head's, at decode (M = 8, split-K launcher) and a
+    prefill (M = 1024, tile launcher), each launching ``launcher_for(M)``
+    only, bit-identical on a second call, within BF16_TOL of its plain
+    version element by element and within BF16_RMS_TOL as a whole; and
+    decode attention at G = 5, dh = 128 (bf16 KV). Returns the max
+    |kernel - plain| keyed by (K, N, M) and by "attention"."""
+    from repro_torch.configs.archs import QWEN3_14B as cfg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import samd_matmul as mm
+    from repro_torch.quant.config import QuantConfig
+    from repro_torch.quant.packing import pack_weights
+
+    qcfg, errs, rms = QuantConfig(bits=4), {}, {}
+    for k, n in QWEN3_MATMUL_SHAPES:
+        packed, scale = pack_weights(
+            torch.randn(k, n, generator=gen, device=dev) * 0.02, qcfg)
+        for m in QWEN3_CHECK_M:
+            x = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            before = ops.launch_counts()
+            got = ops.samd_matmul(x, packed, scale, k, qcfg)
+            moved = {f for f, c in ops.launch_counts().items()
+                     if c != before[f]}
+            if moved != {mm.launcher_for(m)}:
+                raise AssertionError(f"K={k} N={n} M={m} launched {moved}")
+            if not torch.equal(got, ops.samd_matmul(x, packed, scale, k,
+                                                    qcfg)):
+                raise AssertionError(f"two calls differ at K={k} N={n} M={m}")
+            want = mm.samd_matmul_plain(x, packed, scale, k, qcfg)
+            errs[k, n, m] = max_err(got, want, BF16_TOL)
+            rms[k, n, m] = rel_rms(got, want)
+            if rms[k, n, m] > BF16_RMS_TOL:
+                raise AssertionError(
+                    f"K={k} N={n} M={m}: relative RMS {rms[k, n, m]:.4g} "
+                    f"> {BF16_RMS_TOL:.4g}")
+            del x, got, want
+        del packed, scale
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    args, kw = paged_case(dev, gen, 8, hkv, cfg.n_heads // hkv, dh, 16, 32,
+                          False, [40, -1, 255, 16, 15, 300, 0, 490])
+    got = ops.paged_decode_attention(*args, **kw)
+    errs["attention"] = max_err(
+        got, pa.paged_decode_attention_plain(*args, **kw), BF16_TOL)
+    log("  qwen3-14b shapes: samd_matmul at M=8 (split-K) and M=1024 "
+        "(tile), two calls bit-identical, and decode attention at G=5 "
+        "dh=128; max |kernel - plain| = " + json.dumps(
+            {str(key): e for key, e in errs.items()})
+        + "; relative RMS of kernel - plain = " + json.dumps(
+            {str(key): round(r, 7) for key, r in rms.items()}))
     return errs
 
 
@@ -517,14 +641,14 @@ def check_ring_fold(dev, gen):
 
 # -- (c) and (e) serving -----------------------------------------------------
 
-def workload(seed, n=N_REQUESTS):
+def workload(seed, n=N_REQUESTS, max_tokens=MAX_TOKENS):
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=rng.integers(0, 151936,
                                                size=int(rng.integers(32, 257))
                                                ).astype(np.int32),
-                    max_tokens=MAX_TOKENS)
+                    max_tokens=max_tokens)
             for i in range(n)]
 
 
@@ -552,31 +676,40 @@ def time_speculative_steps(eng):
     return marks
 
 
-def serve(label, dev, expect, seed=0, **engine_kw):
-    """Serve the workload with ``ServingEngine(QWEN15_05B, **engine_kw)``;
-    the launchers in ``expect`` must launch and no other. Returns
-    (engine, summary dict, launch counts)."""
-    from repro_torch.configs.archs import QWEN15_05B as cfg
+def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
+          max_tokens=MAX_TOKENS, **engine_kw):
+    """Serve the first ``n`` requests of the workload, ``max_tokens``
+    each, with ``ServingEngine(arch, **engine_kw)`` (default
+    QWEN15_05B); the launchers in ``expect`` must launch and no other.
+    Returns (engine, summary dict, launch counts)."""
+    from repro_torch.configs.archs import QWEN15_05B
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
 
+    cfg = arch or QWEN15_05B
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     eng = ServingEngine(cfg, None, seed=seed, device=dev, **SERVE,
                         **engine_kw)
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
     marks = time_speculative_steps(eng) if eng.speculative else None
-    for r in workload(seed + 1):
+    for r in workload(seed + 1, n, max_tokens):
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     decode_ms, ticks = [], 0
     t0 = time.perf_counter()
+    def prefill_count():
+        return (eng.stats["prefill_calls"]
+                + eng.stats["per_row_prefill_calls"])
+
     while eng.queue or any(s is not None for s in eng.slots):
-        prefills = eng.stats["prefill_calls"]
+        prefills = prefill_count()
         t = time.perf_counter()
         eng.step()  # ends in a host sync (the sampled ids)
-        if eng.stats["prefill_calls"] == prefills:
+        if prefill_count() == prefills:
             decode_ms.append((time.perf_counter() - t) * 1e3)
         ticks += 1
         if ticks > 2000:
@@ -584,10 +717,10 @@ def serve(label, dev, expect, seed=0, **engine_kw):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     done = eng.finished
-    if len(done) != N_REQUESTS:
-        raise AssertionError(f"{len(done)} of {N_REQUESTS} finished")
+    if len(done) != n:
+        raise AssertionError(f"{len(done)} of {n} finished")
     for r in done:
-        if r.error or r.truncated or len(r.generated) != MAX_TOKENS:
+        if r.error or r.truncated or len(r.generated) != max_tokens:
             raise AssertionError(f"request {r.rid}: error={r.error} "
                                  f"truncated={r.truncated} "
                                  f"n={len(r.generated)}")
@@ -604,8 +737,10 @@ def serve(label, dev, expect, seed=0, **engine_kw):
         decode_tick_ms_median=round(float(np.median(decode_ms)), 3),
         decode_tick_ms_mean=round(float(np.mean(decode_ms)), 3),
         tokens_per_s=round(gen_tokens / wall, 1),
-        prefill_calls=eng.stats["prefill_calls"],
+        prefill_calls=prefill_count(),
         peak_mem_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 2),
+        init_peak_mem_gib=round(init_peak / 2**30, 2),
+        kv_cache_gib=round(eng.kv_cache_bytes() / 2**30, 3),
         launches=counts)
     if marks:
         split = [(a.elapsed_time(b), b.elapsed_time(c))
@@ -621,7 +756,7 @@ def serve(label, dev, expect, seed=0, **engine_kw):
             # every token but each request's first (its prefill's) comes
             # from a speculative tick
             tokens_per_slot_tick=round(
-                (gen_tokens - N_REQUESTS) / max(1, slot_ticks), 3),
+                (gen_tokens - n) / max(1, slot_ticks), 3),
             draft_ms_median=round(float(np.median([d for d, _ in split])),
                                   3),
             verify_ms_median=round(float(np.median([v for _, v in split])),
@@ -668,10 +803,33 @@ def check_greedy(eng, plain, dev, reqs=None, against="plain decode"):
     return identical
 
 
-def check_model_against_plain(eng, dev):
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper runs its plain PyTorch version on the card's
+    tensors (the branch a CPU tensor takes), and no kernel launches."""
+    from repro_torch.kernels import ops
+
+    before, on_cuda = ops.launch_counts(), ops._on_cuda
+    ops._on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        ops._on_cuda = on_cuda
+    if ops.launch_counts() != before:
+        raise AssertionError("a kernel launched inside plain_versions()")
+
+
+def check_model_against_plain(eng, dev, plain_on_card=False,
+                              controls=()):
     """Logits of a 24-token prefill (gather attention) and a fused decode
     token, through the kernels on the card and through the plain versions
-    on the CPU, for the engine's own weights and KV format."""
+    on the CPU (``plain_on_card``: on the card, for a model whose plain
+    run would take minutes on the host's cores), for the engine's own
+    weights and KV format, within MODEL_TOL. ``controls`` holds (name,
+    context) pairs: under each ``context()`` the kernels' side runs once
+    more, and its max |err| over the scale is printed and returned, not
+    checked. Returns (max err prefill, max err decode, scale, {name:
+    (prefill, decode) err / scale})."""
     from repro_torch.models.layers import QuantizedTensor
     from repro_torch.models.model import forward, init_paged_cache
 
@@ -693,27 +851,76 @@ def check_model_against_plain(eng, dev):
     pt = np.array([[3, 1], [0, 2]], np.int32)
     dec = rng.integers(0, cfg.vocab, size=(2, 1))
     dpos = np.array([[24], [19]])
-    out = {}
-    for device, params in ((dev, eng.params), ("cpu", to_cpu(eng.params))):
+
+    def logits(device, params, context):
         cache = init_paged_cache(cfg, 4, ps, kv_bits=eng._kv_bits,
                                  device=device)
         t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in dict(toks=toks, pos=pos, pt=pt, dec=dec,
                               dpos=dpos).items()}
-        pre = forward(params, t["toks"], cfg, positions=t["pos"],
-                      cache=cache, page_table=t["pt"], page_size=ps)
-        nxt = forward(params, t["dec"], cfg, positions=t["dpos"],
-                      cache=cache, page_table=t["pt"], page_size=ps,
-                      paged_attn="fused")
-        valid = t["pos"] >= 0
-        out[device] = (pre[valid].float().cpu(), nxt.float().cpu())
-    errs = [max_err(a, b, MODEL_TOL) for a, b in zip(out[dev], out["cpu"])]
-    for a in out[dev]:
+        with context():
+            pre = forward(params, t["toks"], cfg, positions=t["pos"],
+                          cache=cache, page_table=t["pt"], page_size=ps)
+            nxt = forward(params, t["dec"], cfg, positions=t["dpos"],
+                          cache=cache, page_table=t["pt"], page_size=ps,
+                          paged_attn="fused")
+        return pre[t["pos"] >= 0].float().cpu(), nxt.float().cpu()
+
+    got = logits(dev, eng.params, contextlib.nullcontext)
+    want = (logits(dev, eng.params, plain_versions) if plain_on_card
+            else logits("cpu", to_cpu(eng.params), contextlib.nullcontext))
+    errs = [max_err(a, b, MODEL_TOL) for a, b in zip(got, want)]
+    for a in got:
         if a.shape[-1] != cfg.vocab:
             raise AssertionError(f"logits shape {tuple(a.shape)}")
-    log(f"  full-width logits, kernels on the card vs plain on the CPU: "
-        f"max err prefill {errs[0]:.4g}, decode {errs[1]:.4g} "
-        f"(scale {out['cpu'][0].abs().max().item():.4g})")
+    scale = want[0].abs().max().item()
+    seen = {}
+    for name, context in controls:
+        seen[name] = tuple(
+            round((a - b).abs().max().item() / b.abs().max().item(), 5)
+            for a, b in zip(logits(dev, eng.params, context), want))
+    where = "the card" if plain_on_card else "the CPU"
+    log(f"  full-width logits ({cfg.name}, {cfg.n_layers} layers), kernels "
+        f"on the card vs plain on {where}: max err prefill {errs[0]:.4g}, "
+        f"decode {errs[1]:.4g} (scale {scale:.4g}; "
+        f"{errs[0] / scale:.4g} / {errs[1] / scale:.4g} of it, limit "
+        f"{MODEL_TOL})")
+    if seen:
+        log("  the same with the kernels' scales changed (max err / scale, "
+            "prefill and decode; not checked): " + json.dumps(seen))
+    return errs[0], errs[1], scale, seen
+
+
+@contextlib.contextmanager
+def scaled(weights, factor):
+    """The packed ``weights``' scales times ``factor``, restored after."""
+    saved = [w.scale.clone() for w in weights]
+    for w in weights:
+        w.scale.mul_(factor)
+    try:
+        yield
+    finally:
+        for w, s in zip(weights, saved):
+            w.scale.copy_(s)
+
+
+def scale_controls(params):
+    """(name, context) controls for ``check_model_against_plain``: one
+    linear of the middle layer (wd), every linear of the blocks, and the
+    LM head, with scales times SCALE_CONTROL."""
+    from repro_torch.models.layers import QuantizedTensor
+
+    blocks = params["blocks"]
+    linears = [w for blk in blocks for part in blk.values()
+               for w in part.values() if isinstance(w, QuantizedTensor)]
+    mid = blocks[len(blocks) // 2]["mlp"]["wd"]
+    f = SCALE_CONTROL
+    return ((f"wd of layer {len(blocks) // 2} x{f}",
+             functools.partial(scaled, [mid], f)),
+            (f"every block linear x{f}",
+             functools.partial(scaled, linears, f)),
+            (f"LM head x{f}",
+             functools.partial(scaled, [params["lm_head"]], f)))
 
 
 # -- (d) timing at decode shapes ---------------------------------------------
@@ -1990,6 +2197,282 @@ def run_front_door(eng, dev, inline_tick_ms, expect):
                 thread_against_inline=ab, rows=rows), counts
 
 
+# -- (h) the engine's other modes, qwen3-14b, group scales, the analysis ------
+
+class LaunchLog:
+    """Records the arguments of every launch the matmul and conv sources
+    make (wrapping their ``Kernel.launch``; the counts stay the
+    wrappers'): the plans (h5) checks, and launches by shape."""
+
+    def __init__(self):
+        from repro_torch.kernels import samd_conv, samd_matmul
+
+        self.plans = collections.Counter()
+        for kern in (samd_matmul.KERNEL, samd_conv.KERNEL):
+            launch = kern.launch
+
+            def record(fn, *args, _launch=launch):
+                _launch(fn, *args)
+                self.plans[self.key(fn, args)] += 1
+
+            kern.launch = record
+
+    @staticmethod
+    def key(fn, args):
+        """The plan of one launch from its launcher's arguments (their
+        order is the wrappers'): matmul (M, N, K, vpw, splits); conv2d
+        (C_in, H, W, KH, KW, CW, C_out, pad, bits, lane width, vpw,
+        signed, bf16 x, splits, step_k, steps); conv1d (tile chunks,
+        lanes, x's type code)."""
+        if fn in (SPLITK, TILE):
+            return (fn, args[4], args[5], args[6], args[9], args[11])
+        if fn in (CONV2D, CONV2D_IM2COL):
+            return (fn,) + tuple(args[6:22])
+        if fn == CONV1D:
+            return (fn, args[8], args[12], args[16])
+        return (fn,)
+
+    def matmul(self):
+        """(launcher, M, N, K, vpw, splits) -> launches."""
+        return collections.Counter(
+            {key: c for key, c in self.plans.items()
+             if key[0] in (SPLITK, TILE)})
+
+
+def serve_modes(dev, c_done, c_sum):
+    """(h1) (c)'s 4-bit bf16-KV engine in ring and gather mode, (h2) its
+    per-row path; tokens against (c)'s fused paged run (``c_done``, its
+    finished requests, taken before (g) reset and reused the engine).
+    Returns {mode: (summary, counts)}."""
+    from repro_torch.quant.config import QuantConfig
+
+    out = {}
+    for mode, kw, extra in (
+            ("ring", dict(kv_mode="ring"), {}),
+            ("gather", dict(paged_attn="gather"), {}),
+            ("per-row", dict(decode_mode="per_row"),
+             dict(n=PER_ROW_REQUESTS, max_tokens=PER_ROW_TOKENS))):
+        eng, summary, counts = serve(f"4-bit, bf16 KV, {mode}", dev,
+                                     {SPLITK, TILE},
+                                     quant=QuantConfig(bits=4), **kw, **extra)
+        summary["identical"] = check_greedy(
+            eng, c_done, dev, against="(c)'s fused paged run")
+        summary["stats"] = dict(eng.stats)
+        if mode == "per-row" and not eng.stats["per_row_forward_calls"]:
+            raise AssertionError("the per-row path made no per-row forward")
+        out[mode] = (summary, counts)
+        del eng
+    keys = ("decode_tick_ms_median", "decode_tick_ms_mean", "tokens_per_s",
+            "peak_mem_gib", "kv_cache_gib")
+    log("  modes beside (c)'s fused paged run: " + json.dumps(
+        {"(c) fused paged": {k: c_sum[k] for k in keys if k in c_sum}}
+        | {m: {k: sm[k] for k in keys} for m, (sm, _) in out.items()}))
+    return out
+
+
+def time_lm_head(dev, timer, head, m):
+    """The packed LM head at M = ``m`` rows: device time of one launch in
+    a CUDA graph beside dense bf16 ``torch.matmul`` on its dequantized
+    weight, host-paced times, the plain version, the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_matmul as mm
+    from repro_torch.quant.packing import dequant_weights
+
+    k, n = head.orig_shape
+    cfg = head.cfg
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    dense = dequant_weights(head.packed, head.scale, k, cfg)
+
+    def kern():
+        return ops.samd_matmul(x, head.packed, head.scale, k, cfg)
+
+    def lib():
+        return torch.matmul(x, dense)
+
+    n_bytes = (x.numel() * 2 + head.packed.numel() * 4
+               + head.scale.numel() * 4 + m * n * 2)
+    row = timing_row(
+        f"samd_matmul (qwen3-14b LM head, M={m})", graph_ms(kern),
+        timer(lambda: mm.samd_matmul_plain(x, head.packed, head.scale, k,
+                                           cfg), iters=3),
+        graph_ms(lib), n_bytes, 2 * m * k * n, k=k, n=n,
+        launcher=mm.launcher_for(m),
+        splits=mm.split_k(m, n, k, cfg.values_per_word)[0],
+        host_paced_ms=timer(kern), library_host_paced_ms=timer(lib),
+        dense_bf16_bound_ms=bound_ms(x.numel() * 2 + k * n * 2
+                                     + m * n * 2, 2 * m * k * n)[0],
+        host_us_per_call=host_us_per_call(kern))
+    del dense
+    return row
+
+
+def serve_qwen3(dev, timer, launch_log):
+    """(h3) full-width qwen3-14b, 4-bit, the untied LM head packed: (c)'s
+    16 requests; its logits against the plain versions; (d)'s device
+    times of its decode linears, its LM head and a prefill. Returns
+    (summary, counts, launches by matmul shape, timings)."""
+    from repro_torch.configs.archs import QWEN3_14B
+    from repro_torch.models.layers import QuantizedTensor
+    from repro_torch.quant.config import QuantConfig
+
+    before = launch_log.matmul()
+    eng, summary, counts = serve(
+        "qwen3-14b, 4-bit, LM head packed, bf16 KV", dev,
+        {SPLITK, TILE, DECODE}, arch=QWEN3_14B,
+        quant=QuantConfig(bits=4, quantize_embeddings=True))
+    shapes = launch_log.matmul() - before
+    head = eng.params["lm_head"]
+    if not isinstance(head, QuantizedTensor):
+        raise AssertionError("qwen3-14b's LM head was not packed")
+    head_launches = {key: c for key, c in shapes.items()
+                     if key[2] == QWEN3_14B.vocab}
+    if not any(key[0] == SPLITK for key in head_launches):
+        raise AssertionError("the LM head never ran the split-K launcher")
+    summary["lm_head_launches"] = {f"{key[0]} M={key[1]}": c
+                                   for key, c in head_launches.items()}
+    pre, dec, scale, seen = check_model_against_plain(
+        eng, dev, plain_on_card=True, controls=scale_controls(eng.params))
+    summary["model_errs"] = dict(prefill=pre, decode=dec, scale=scale,
+                                 scale_controls=seen)
+    log("  qwen3-14b serving: " + json.dumps(summary))
+    t = dict(decode=time_samd_matmul(dev, timer, eng.params,
+                                     "qwen3-14b decode, M=8", 8),
+             head=time_lm_head(dev, timer, head, 8),
+             prefill=time_samd_matmul(dev, timer, eng.params,
+                                      "qwen3-14b prefill, M=1024", 1024))
+    del eng, head
+    torch.cuda.empty_cache()
+    return summary, counts, shapes, t
+
+
+def serve_group_scales(dev):
+    """(h4) the same qwen3-14b with ``group_size`` scales: every linear,
+    the LM head too, through the dequantize route, so no matmul launcher
+    runs; decode attention does."""
+    from repro_torch.configs.archs import QWEN3_14B
+    from repro_torch.models.layers import QuantizedTensor
+    from repro_torch.quant.config import QuantConfig
+
+    eng, summary, counts = serve(
+        f"qwen3-14b, 4-bit, group_size={GROUP_SIZE}, LM head packed, "
+        "bf16 KV", dev, {DECODE}, arch=QWEN3_14B, n=GROUP_REQUESTS,
+        max_tokens=GROUP_TOKENS,
+        quant=QuantConfig(bits=4, group_size=GROUP_SIZE,
+                          quantize_embeddings=True))
+    grouped = [w for blk in eng.params["blocks"] for part in blk.values()
+               for w in part.values() if isinstance(w, QuantizedTensor)]
+    grouped.append(eng.params["lm_head"])
+    if not all(w.scale.shape[0] == w.k // GROUP_SIZE for w in grouped):
+        raise AssertionError("a linear has no group scales")
+    del eng
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def check_analysis(dev, launch_log):
+    """(h5) every launch plan the run used: the shared-memory estimate of
+    ``analysis.contracts`` is at least the kernel's own (the static bytes
+    the runtime reports for the compiled kernel plus the dynamic bytes
+    its launcher passes, from the source's ``*_smem_bytes`` query) and
+    within the card's 227 KB; ``act_bits`` refused at engine
+    construction exactly where K x 2^(bits-1) x 2^(act_bits-1) passes
+    2^24 (the f32 exactness bound, counted here without the port's
+    analysis);
+    ``certify`` finds nothing unsafe."""
+    import io
+
+    from repro_torch.analysis import certify, contracts
+    from repro_torch.analysis.lanes import LaneSafetyError
+    from repro_torch.configs.archs import QWEN3_14B, QWEN15_05B
+    from repro_torch.kernels import samd_conv
+    from repro_torch.kernels import samd_matmul as mm
+    from repro_torch.quant.config import QuantConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    def own(kern, fn, *args):
+        got = kern.query(fn, *args)
+        if got < 0:
+            raise AssertionError(f"{fn}{args} gave {got}")
+        return got
+
+    limit, rows = contracts.SMEM_LIMIT_BYTES, []
+    for (fn, m, n, k, vpw, splits), c in sorted(launch_log.matmul().items()):
+        rows.append((fn, f"M={m} N={n} K={k} vpw={vpw} splits={splits}",
+                     contracts.matmul_smem_bytes(fn, m, vpw, splits),
+                     own(mm.KERNEL, "samd_matmul_smem_bytes",
+                         int(fn == TILE), m, vpw, splits), c))
+    for key, c in sorted(launch_log.plans.items()):
+        fn = key[0]
+        if fn in (CONV2D, CONV2D_IM2COL):
+            (c_in, h, w, kh, kw, cw, n, pad, bits, _, vpw, signed, x_bf16,
+             splits, _, _) = key[1:]
+            plan = samd_conv.conv2d_plan(c_in, cw, h, w, kh, kw, n, pad,
+                                         vpw, bool(x_bf16), fn)
+            wide = bits > (9 if signed else 8)
+            rows.append((fn, f"C={c_in} {h}x{w} N={n} vpw={vpw} "
+                         f"x_bf16={x_bf16} splits={splits}",
+                         contracts.conv2d_smem_bytes(plan, vpw, wide),
+                         own(samd_conv.KERNEL, "samd_conv2d_smem_bytes", vpw,
+                             int(x_bf16), int(wide),
+                             int(fn == CONV2D_IM2COL)), c))
+        elif fn == CONV1D:
+            tile_chunks, lanes, x_code = key[1:]
+            isz = (1, 1, 2, 4, 8)[x_code]
+            rows.append((fn, f"tile={tile_chunks} lanes={lanes} x={isz}B",
+                         contracts.conv1d_smem_bytes(types.SimpleNamespace(
+                             tile_chunks=tile_chunks, lanes=lanes), isz),
+                         own(samd_conv.KERNEL, "samd_conv1d_smem_bytes",
+                             tile_chunks, lanes, x_code), c))
+    bad = [r for r in rows if not r[3] <= r[2] <= limit]
+    groups = collections.defaultdict(lambda: [0, 0, []])
+    for fn, what, est, own, c in rows:
+        g = groups[fn, est, own]
+        g[0] += 1
+        g[1] += c
+        g[2].append(what)
+    for (fn, est, own), (n_plans, c, whats) in sorted(groups.items()):
+        log(f"  smem {fn}: estimate {est} B, kernel {own} B: {n_plans} "
+            f"plans, {c} launches (e.g. {whats[0]})")
+    if bad:
+        raise AssertionError(f"shared-memory estimates below the kernel's "
+                             f"own or over {limit} B: {bad}")
+    log(f"  shared memory: {len(rows)} launch plans, every estimate >= the "
+        f"kernel's own bytes and <= {limit} B")
+
+    verdicts = []
+    for arch, bits in ((QWEN15_05B, 4), (QWEN15_05B, 8), (QWEN3_14B, 4)):
+        qcfg = QuantConfig(bits=bits, act_bits=ACT_BITS,
+                           quantize_embeddings=not arch.tie_embeddings)
+        depths = {arch.d_model, arch.d_ff, arch.n_heads * arch.head_dim}
+        unsafe = any(k << (bits - 1) << (ACT_BITS - 1) > F32_EXACT
+                     for k in depths)
+        try:
+            eng = ServingEngine(arch, None, quant=qcfg, max_batch=1,
+                                max_len=16, device=dev)
+            raised = None
+            del eng
+        except LaneSafetyError as e:
+            raised = e.verdict
+        torch.cuda.empty_cache()
+        if (raised is not None) != unsafe:
+            raise AssertionError(
+                f"{arch.name} bits={bits} act_bits={ACT_BITS}: expected "
+                f"{'a refusal' if unsafe else 'an engine'}, got {raised}")
+        verdicts.append(dict(arch=arch.name, bits=bits, act_bits=ACT_BITS,
+                             max_depth=max(depths), refused=unsafe,
+                             status=raised.status if raised else "safe",
+                             depth=raised.depth if raised else None))
+    log("  act_bits at engine construction: " + json.dumps(verdicts))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = certify.main(["--bench", str(ROOT / "BENCH_serving.json")])
+    text = buf.getvalue().strip().splitlines()[-1]
+    log(f"  {text}")
+    if rc != 0 or "0 unsafe" not in text:
+        raise AssertionError(f"certify: {text}")
+    return dict(smem_plans=len(rows), act_bits=verdicts, certify=text)
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -2077,20 +2560,24 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {k.name} {fn}: {line.strip()}")
 
+    launch_log = LaunchLog()
+
     log("(b) kernels against their plain versions")
     err_mm = check_samd_matmul(dev, gen)
+    err_q3 = check_qwen3_shapes(dev, gen)
     err_pa = check_paged_attention(dev, gen)
     err_verify = check_verify_attention(dev, gen)
     err_ring = check_ring_fold(dev, gen)
 
     log("(c) serve full-width qwen1.5-0.5b, 4-bit SAMD weights")
-    runs = {}
+    runs, c_done = {}, {}
     for kv_bits, fmt in ((None, "bf16"), (8, "int8")):
         eng, summary, counts = serve(
             f"4-bit, {fmt} KV", dev, {SPLITK, TILE, DECODE},
             quant=QuantConfig(bits=4, kv_bits=kv_bits))
         check_model_against_plain(eng, dev)
         runs[fmt] = (eng, summary, counts)
+        c_done[fmt] = list(eng.finished)  # (g) resets and reuses the engine
 
     log("(e) speculative serving")
     spec_k = {run: k for run, _, k in SPEC_RUNS}
@@ -2184,7 +2671,7 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
             err_verify[fmt, r + 1, 1], t, f"verify B=8 S={r + 1} H=Hkv=16 "
             "dh=64 ps=16 n_pp=32, per layer; device times"))
-    time_qwen3_attention(dev, timer, gen, old_pa)
+    q3_attn = time_qwen3_attention(dev, timer, gen, old_pa)[0]
 
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
     kernels += run_vggb(dev, gen, timer, card,
@@ -2217,8 +2704,67 @@ def main() -> int:
         err_pa["bf16", 1], attn_t["bf16"],
         "(g): launches of the three open-loop rows; numbers of (c)'s bf16 "
         "KV decode row"))
+
+    log(f"(h) the engine's other modes, full-width qwen3-14b, group scales "
+        f"and the lane-safety analysis (card: {card})")
+    modes = serve_modes(dev, c_done["bf16"], runs["bf16"][1])
+    pr_t = time_samd_matmul(dev, timer, runs["bf16"][0].params,
+                            "per-row decode, M=1", 1)
+    for mode, (_, counts) in modes.items():
+        m = 1 if mode == "per-row" else SERVE["max_batch"]
+        kernels.append(kernel_entry(
+            f"samd_matmul split-K ({mode} run, M={m})", MM_SOURCE,
+            "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
+            err_mm[4, "temporary", True, m],
+            pr_t if mode == "per-row" else decode_t["bf16"],
+            f"(h): (c)'s 4-bit bf16-KV engine, {mode}; numbers of the "
+            f"M={m} decode row of (c)'s weights"))
+        kernels.append(kernel_entry(
+            f"samd_matmul tile ({mode} run prefill)", MM_SOURCE,
+            "src/repro/kernels/samd_matmul.py:123", counts[TILE],
+            err_mm[4, "temporary", True, 1024], prefill_t,
+            f"(h): {mode} prefills; numbers of the M=1024 row"))
+    q3_sum, q3_counts, q3_shapes, q3_t = serve_qwen3(dev, timer, launch_log)
+    head_n = sum(c for key, c in q3_shapes.items()
+                 if key[0] == SPLITK and key[2] == 151936)
+    kernels.append(kernel_entry(
+        "samd_matmul split-K (qwen3-14b decode linears, M=8)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", q3_counts[SPLITK] - head_n,
+        max(e for key, e in err_q3.items()
+            if key[-1:] == (8,) and key[1] != 151936),
+        q3_t["decode"], "(h3) full-width qwen3-14b, 4-bit, mean per launch "
+        "over wq,wk,wv,wo,wg,wu,wd of 40 layers; device times"))
+    kernels.append(kernel_entry(
+        "samd_matmul split-K (qwen3-14b LM head, M=8)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", head_n,
+        err_q3[5120, 151936, 8], q3_t["head"],
+        "(h3) K=5120 N=151936, 4-bit (quantize_embeddings); device times"))
+    kernels.append(kernel_entry(
+        "samd_matmul tile (qwen3-14b prefill)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", q3_counts[TILE],
+        max(e for key, e in err_q3.items() if key[-1:] == (1024,)),
+        q3_t["prefill"],
+        "(h3) prefills of 8 x bucket rows, the LM head's included; numbers "
+        "of M=1024 over the 7 linears of 40 layers"))
+    kernels.append(kernel_entry(
+        "paged_decode_attention (qwen3-14b, bf16 KV)", PA_SOURCE,
+        "src/repro/kernels/paged_attention.py:294", q3_counts[DECODE],
+        err_q3["attention"], q3_attn,
+        "(h3) decode B=8 Hkv=8 G=5 dh=128 ps=16 n_pp=32; numbers of (d)'s "
+        "qwen3-14b kernel-only row"))
+    g_sum, g_counts = serve_group_scales(dev)
+    kernels.append(kernel_entry(
+        f"paged_decode_attention (qwen3-14b group_size={GROUP_SIZE})",
+        PA_SOURCE, "src/repro/kernels/paged_attention.py:294",
+        g_counts[DECODE], err_q3["attention"], q3_attn,
+        "(h4) the group-scaled run (its linears dequantize, no matmul "
+        "launcher); numbers of (d)'s qwen3-14b kernel-only row"))
+    analysis = check_analysis(dev, launch_log)
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
+    log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
+    log("qwen3-14b: " + json.dumps(dict(q3_sum, group_scales=g_sum)))
+    log("analysis: " + json.dumps(analysis))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

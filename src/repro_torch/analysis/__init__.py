@@ -1,4 +1,5 @@
-"""Static lane-safety checks of SAMD configurations (the port's part of
-``repro.analysis``): the bit-width abstract interpreter (``lanes``) and
-the matmul and conv contracts that ``kernels.ops`` runs before every
-matmul and conv."""
+"""Static lane-safety analysis of SAMD configurations (the port's copy of
+``repro.analysis``): the bit-width abstract interpreter (``lanes``), the
+kernel contracts and shared-memory budgets (``contracts``) that
+``kernels.ops`` and the serving engine run, and the repo-wide sweep
+(``python -m repro_torch.analysis.certify``)."""

@@ -103,6 +103,15 @@ class Kernel:
             self._lib = lib
         return self._lib
 
+    def query(self, fn: str, *args: int) -> int:
+        """Call an exported host function ``int fn(int, ...)`` that
+        launches nothing (the sources' shared-memory sizes); not
+        counted."""
+        call = getattr(self.lib(), fn)
+        call.argtypes = [ctypes.c_int] * len(args)
+        call.restype = ctypes.c_int
+        return call(*args)
+
     def launch(self, fn: str, *args) -> None:
         """Call launcher ``fn``; raise on a CUDA error, else count it."""
         call = self._fns.get(fn)

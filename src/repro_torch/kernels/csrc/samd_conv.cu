@@ -807,6 +807,39 @@ int dispatch_vpw(const void* x, const void* packed, const void* scale,
   return (int)cudaErrorInvalidValue;  // lanes of 8 bits or fewer are narrow
 }
 
+// static shared memory of a kernel as ptxas allocated it, -1 where the
+// runtime cannot read its attributes
+template <typename F>
+int static_smem(F kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  return (int)attr.sharedSizeBytes;
+}
+
+// the most shared memory one block of a run_conv2d launch takes: the
+// pre-pass kernel's static tile, or conv_mma_kernel's static bytes plus
+// the dynamic bytes run_conv2d passes
+template <typename XT, typename OutT, int VPW, int TERMS, int CT>
+int conv2d_block_smem(int im2col) {
+  const int mma = static_smem(conv_mma_kernel<OutT, VPW, TERMS, CT>);
+  const int pre = im2col ? static_smem(im2col_x_kernel<XT, TERMS>)
+                         : static_smem(stage_x_kernel<XT, TERMS>);
+  if (mma < 0 || pre < 0) return -1;
+  const int gemm = mma + Smem<VPW, TERMS, CT>::BYTES;
+  return gemm > pre ? gemm : pre;
+}
+
+// conv2d_block_smem of the instantiation dispatch_vpw picks; -1 where it
+// has none
+template <int VPW>
+int conv2d_smem_of(int x_bf16, int wide, int im2col) {
+  if (x_bf16) return conv2d_block_smem<bf16, bf16, VPW, 1, 1>(im2col);
+  if (!wide) return conv2d_block_smem<float, float, VPW, 2, 1>(im2col);
+  if constexpr (VPW <= 3)
+    return conv2d_block_smem<float, float, VPW, 2, 2>(im2col);
+  return -1;
+}
+
 int launch_conv2d(const void* x, const void* packed, const void* scale,
                   void* out, void* ws, long long ws_elems, int C, int H,
                   int W, int KH, int KW, int CW, int N, int pad, int bits,
@@ -1086,6 +1119,14 @@ int run_conv1d(const void* x, const void* k, void* out, const Conv1dArgs& a,
   return (int)cudaGetLastError();
 }
 
+// static and dynamic shared memory of one samd_conv1d_kernel<T> block
+template <typename T>
+int conv1d_block_smem(int tile_chunks, int lanes) {
+  const int s = static_smem(samd_conv1d_kernel<T>);
+  if (s < 0) return -1;
+  return s + Conv1dSmem(tile_chunks, lanes, (int)sizeof(T)).bytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1180,6 +1221,39 @@ int samd_conv_chunks_launch(const void* x_words, const void* k_word, void* out,
       (const uint32_t*)x_words, (const uint32_t*)k_word, (int*)out, nc, L,
       out_lanes, signed_lanes, lane_msb(L));
   return (int)cudaGetLastError();
+}
+
+// bytes of shared memory, static and dynamic, the largest block of a
+// samd_conv2d launch (im2col = 0) or samd_conv2d_im2col launch
+// (im2col = 1) takes at vpw values a word, bf16 x or f32 x, with wide
+// codes (signed lanes over 9 bits, unsigned over 8); -1 where no
+// instantiation exists or on a runtime error. Launches nothing.
+int samd_conv2d_smem_bytes(int vpw, int x_bf16, int wide, int im2col) {
+#define SAMD_VPW(V) \
+  case V:           \
+    return conv2d_smem_of<V>(x_bf16, wide, im2col);
+  switch (vpw) {
+    SAMD_VPW(1) SAMD_VPW(2) SAMD_VPW(3) SAMD_VPW(4) SAMD_VPW(5)
+    SAMD_VPW(6) SAMD_VPW(8) SAMD_VPW(10) SAMD_VPW(16) SAMD_VPW(32)
+    default:
+      return -1;
+  }
+#undef SAMD_VPW
+}
+
+// bytes of shared memory, static and dynamic, one samd_conv1d block takes
+// for a tile of `tile_chunks` chunks of `lanes` values of x's type
+// (`x_code` as samd_conv1d_launch takes it); -1 for an unknown code or
+// on a runtime error. Launches nothing.
+int samd_conv1d_smem_bytes(int tile_chunks, int lanes, int x_code) {
+  switch (x_code) {
+    case 0: return conv1d_block_smem<int8_t>(tile_chunks, lanes);
+    case 1: return conv1d_block_smem<uint8_t>(tile_chunks, lanes);
+    case 2: return conv1d_block_smem<int16_t>(tile_chunks, lanes);
+    case 3: return conv1d_block_smem<int32_t>(tile_chunks, lanes);
+    case 4: return conv1d_block_smem<long long>(tile_chunks, lanes);
+    default: return -1;
+  }
 }
 
 const char* repro_cuda_error_string(int err) {

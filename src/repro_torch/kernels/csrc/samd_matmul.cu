@@ -370,6 +370,24 @@ samd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// rows of x a block stages, and the dynamic shared memory a launch of M
+// rows in `splits` K splits takes: the stage ring, or the split-K
+// reduction buffer where that is larger
+template <int VPW, int WARPS, int NT, int MT>
+int x_rows(int M) {
+  using T = Tile<VPW, WARPS, NT, MT>;
+  return M < T::BM ? (M + 7) / 8 * 8 : T::BM;
+}
+
+template <int VPW, int WARPS, int NT, int MT, int STAGES>
+size_t dynamic_smem(int M, int splits) {
+  using T = Tile<VPW, WARPS, NT, MT>;
+  size_t smem = (size_t)STAGES * T::stage_bytes(x_rows<VPW, WARPS, NT, MT>(M));
+  const size_t red = (size_t)NT * MT * 4 * T::THREADS * sizeof(float);
+  if (splits > 1 && red > smem) smem = red;
+  return smem;
+}
+
 template <int VPW, int WARPS, int NT, int MT, int STAGES>
 int launch_vpw(const void* x, const void* packed, const void* scale,
                void* out, int M, int N, int K, int bits, int lane_width,
@@ -378,10 +396,8 @@ int launch_vpw(const void* x, const void* packed, const void* scale,
   using T = Tile<VPW, WARPS, NT, MT>;
   const int kw = (K + VPW - 1) / VPW;
   const int total_steps = (kw + STEP_WORDS - 1) / STEP_WORDS;
-  const int xrows = M < T::BM ? (M + 7) / 8 * 8 : T::BM;
-  size_t smem = (size_t)STAGES * T::stage_bytes(xrows);
-  const size_t red = (size_t)NT * MT * 4 * T::THREADS * sizeof(float);
-  if (splits > 1 && red > smem) smem = red;
+  const int xrows = x_rows<VPW, WARPS, NT, MT>(M);
+  const size_t smem = dynamic_smem<VPW, WARPS, NT, MT, STAGES>(M, splits);
   auto kernel = samd_mma_kernel<VPW, WARPS, NT, MT, STAGES>;
   if (smem > 48 * 1024) {
     // once per device and size: the attribute outlives the launch
@@ -444,6 +460,35 @@ int launch(const void* x, const void* packed, const void* scale, void* out,
 #undef SAMD_VPW
 }
 
+// the shared memory one block of a launch takes: the kernel's static
+// bytes (as ptxas allocated them) plus the dynamic bytes launch_vpw
+// passes; -1 where the runtime cannot read the kernel's attributes
+template <int VPW, int WARPS, int NT, int MT, int STAGES>
+int block_smem(int M, int splits) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr,
+                            samd_mma_kernel<VPW, WARPS, NT, MT, STAGES>) !=
+      cudaSuccess)
+    return -1;
+  return (int)(attr.sharedSizeBytes +
+               dynamic_smem<VPW, WARPS, NT, MT, STAGES>(M, splits));
+}
+
+// block_smem of the instantiation launch picks, -1 for a vpw without one
+template <int WARPS, int NT, int MT, int STAGES>
+int smem_of(int M, int vpw, int splits) {
+#define SAMD_VPW(V)                                                        \
+  case V:                                                                  \
+    return block_smem<V, WARPS, NT, MT, STAGES>(M, splits);
+  switch (vpw) {
+    SAMD_VPW(1) SAMD_VPW(2) SAMD_VPW(3) SAMD_VPW(4) SAMD_VPW(5)
+    SAMD_VPW(6) SAMD_VPW(8) SAMD_VPW(10) SAMD_VPW(16) SAMD_VPW(32)
+    default:
+      return -1;
+  }
+#undef SAMD_VPW
+}
+
 }  // namespace
 
 extern "C" {
@@ -474,6 +519,14 @@ int samd_matmul_tile_launch(const void* x, const void* packed,
   return launch<4, 2, 8, 3>(x, packed, scale, out, M, N, K, bits,
                             lane_width, vpw, signed_lanes, splits,
                             steps_per_split, stream);
+}
+
+// bytes of shared memory, static and dynamic, one block of the split-K
+// (tile = 0) or tile (tile = 1) launcher takes at M rows, vpw values a
+// word and `splits` K splits; -1 on a runtime error. Launches nothing.
+int samd_matmul_smem_bytes(int tile, int M, int vpw, int splits) {
+  return tile ? smem_of<4, 2, 8, 3>(M, vpw, splits)
+              : smem_of<2, 1, 4, 4>(M, vpw, splits);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -63,8 +63,13 @@ def samd_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     lane-safety check of (cfg, K, signed) runs first and raises
     ``LaneSafetyError`` on an unsafe configuration. On a card, M rows of
     x at or under ``samd_matmul.SPLITK_MAX_M`` take the split-K launcher,
-    more take the tile launcher."""
+    more take the tile launcher. A group-scaled ``cfg`` raises
+    ``NotImplementedError``, as the reference's kernel does."""
     _verify_matmul(cfg, int(k), bool(signed))
+    if cfg.group_size is not None:
+        # as the reference's kernel: per-channel scales only (a grouped
+        # weight goes through quant.packing.qmatmul's dequantize route)
+        raise NotImplementedError("samd_matmul supports per-channel scales")
     if _on_cuda(x):
         return _mm.samd_matmul_cuda(x, packed, scale, k, cfg, signed=signed)
     lead = x.shape[:-1]

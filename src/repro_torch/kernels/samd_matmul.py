@@ -44,6 +44,11 @@ NUM_SMS = 132     # H100 SXM
 # tile block fills its SM, so one wave: a second, part-filled wave costs
 # more than the split saves
 BLOCK_TARGET = {SPLITK: 8 * NUM_SMS, TILE: NUM_SMS}
+# output tiles at which a launcher stops splitting K: a split-K launch
+# splits until its tiles alone reach the target (qwen3-14b's wg / wu, 544
+# tiles at N = 17408, ran unsplit at 4.4x their bytes bound under the
+# half-target rule); a tile launch stops at half its target
+NO_SPLIT_TILES = {SPLITK: BLOCK_TARGET[SPLITK], TILE: BLOCK_TARGET[TILE] // 2}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -58,14 +63,14 @@ def launcher_for(m: int) -> str:
 @functools.lru_cache(maxsize=4096)
 def split_k(m: int, n: int, k: int, vpw: int) -> tuple[int, int]:
     """(splits, K-steps per split) for an [m, k] x [k, n] product. The
-    output tiles run alone when they reach half the launcher's
-    ``BLOCK_TARGET``; else K is cut into at most ``MAX_SPLITS`` runs,
-    each of at least one step, toward that many blocks."""
+    output tiles run alone when they reach the launcher's
+    ``NO_SPLIT_TILES``; else K is cut into at most ``MAX_SPLITS`` runs,
+    each of at least one step, toward ``BLOCK_TARGET`` blocks."""
     fn = launcher_for(m)
     bn, bm = BLOCK[fn]
     steps = max(1, _cdiv(_cdiv(k, vpw), STEP_WORDS))
     tiles = _cdiv(n, bn) * _cdiv(m, bm)
-    if 2 * tiles >= BLOCK_TARGET[fn]:
+    if tiles >= NO_SPLIT_TILES[fn]:
         return 1, steps
     per = _cdiv(steps, min(steps, MAX_SPLITS,
                            _cdiv(BLOCK_TARGET[fn], tiles)))

@@ -1,9 +1,10 @@
-"""Serving steps over the paged KV pool: ragged decode, batched prefill,
-self-speculative draft + verify, and in-step sampling (the paged subset
-of ``repro/launch/steps.py``).
+"""Serving steps: ragged decode over the paged KV pool or the per-slot
+ring, batched prefill into either, self-speculative draft + verify, and
+in-step sampling (the serving subset of ``repro/launch/steps.py``).
 
 Each step samples on the device, so only the next token ids (and, for a
-speculative tick, the accept lengths) cross to the host.
+speculative tick, the accept lengths) cross to the host. Caches are
+written in place.
 """
 from __future__ import annotations
 
@@ -32,13 +33,72 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
         torch.int32)
 
 
+def make_ragged_serve_step(cfg: ArchConfig, max_len: int):
+    """Position-ragged decode against the per-slot KV ring: every slot
+    advances at its own position, its token's K/V written at its own
+    column of its own ring row (``layers._cache_write`` with per-row
+    offsets). Inactive rows still write, at a clamped offset of their
+    own row: harmless, since admission resets a slot's row."""
+
+    def ragged_serve_step(params, tokens, cache, positions, active,
+                          generator, temperature):
+        """tokens [B, 1]; positions [B]; active [B] bool. Returns the
+        next ids [B] int32, -1 where inactive."""
+        pos = positions.to(torch.int64).clamp(0, max_len - 1)
+        logits = forward(params, tokens, cfg, positions=pos[:, None],
+                         cache=cache, cache_index=pos)
+        nxt = sample_tokens(logits[:, -1], generator, temperature)
+        return torch.where(active, nxt, -1)
+
+    return ragged_serve_step
+
+
+def make_batched_prefill_step(cfg: ArchConfig, max_len: int,
+                              max_batch: int, kv_bits=None):
+    """Bucket-padded batched prefill for the ring: the prompts run
+    through ONE forward into a fresh ring (padding at position -1 stays
+    masked), then each valid row replaces its target slot's row of the
+    engine's ring, on the device (each slot takes the first valid row
+    mapped to it)."""
+
+    def batched_prefill_step(params, tokens, lens, slot_map, valid, cache,
+                             generator, temperature):
+        """tokens [Nb, Lb] right-padded; lens [Nb]; slot_map [Nb] target
+        slot of each row; valid [Nb] bool. Returns the first generated
+        id per row, -1 for padding rows."""
+        nb, lb = tokens.shape
+        dev = tokens.device
+        t_idx = torch.arange(lb, device=dev)[None, :]
+        pos = torch.where(t_idx < lens[:, None], t_idx, -1)
+        fresh = init_cache(cfg, nb, max_len, kv_bits=kv_bits, device=dev)
+        logits = forward(params, tokens, cfg, positions=pos, cache=fresh,
+                         cache_index=0)
+        last = logits[torch.arange(nb, device=dev),
+                      (lens - 1).clamp(min=0)]
+        tok0 = sample_tokens(last, generator, temperature)
+        match = valid[None, :] & (
+            slot_map[None, :] == torch.arange(max_batch, device=dev)[:, None])
+        has = match.any(dim=1)
+        src = torch.argmax(match.to(torch.int32), dim=1)
+        for ring, filled in zip(cache["layers"], fresh["layers"]):
+            for name, c in ring.items():
+                keep = has.reshape((max_batch,) + (1,) * (c.ndim - 1))
+                c.copy_(torch.where(keep, filled[name][src], c))
+        return torch.where(valid, tok0, -1)
+
+    return batched_prefill_step
+
+
 def make_paged_ragged_serve_step(cfg: ArchConfig, max_len: int,
-                                 page_size: int):
+                                 page_size: int, paged_attn: str = "fused"):
     """Position-ragged decode against the paged KV pool: every slot
     advances at its own position. Row i's token is written at page
     ``page_table[i, pos_i // page_size]``; rows whose table row is all -1
     (inactive slots) write nowhere and read no key. Attention runs the
-    fused paged decode kernel."""
+    fused paged decode kernel (``paged_attn="fused"``) or the dense page
+    gather (``"gather"``, the reference path)."""
+    if paged_attn not in ("fused", "gather"):
+        raise ValueError(f"unknown paged_attn {paged_attn!r}")
 
     def paged_ragged_serve_step(params, tokens, cache, positions, active,
                                 page_table, generator, temperature):
@@ -49,7 +109,7 @@ def make_paged_ragged_serve_step(cfg: ArchConfig, max_len: int,
         logits = forward(
             params, tokens, cfg, positions=pos[:, None], cache=cache,
             page_table=page_table, page_size=page_size,
-            paged_attn="fused",
+            paged_attn=paged_attn,
         )
         nxt = sample_tokens(logits[:, -1], generator, temperature)
         return torch.where(active, nxt, -1)
@@ -163,13 +223,14 @@ def speculative_accept(logits: torch.Tensor, draft_tok: torch.Tensor,
 
 
 def make_draft_step(cfg: ArchConfig, max_len: int, page_size: int,
-                    k_spec: int):
+                    k_spec: int, paged_attn: str = "fused"):
     """Draft half of the speculative tick: ``k_spec`` single-token low-bit
     forwards per slot. Each writes its K/V into a tick-local bf16 ring
     (``init_cache(cfg, B, k_spec)``, never the pool) and reads the pool
     only below the window base; attention runs the decode kernel with
-    the ring fold. Returns (draft_tok [B, K] int32, draft_logits
-    [B, K, V])."""
+    the ring fold (``paged_attn="fused"``) or the dense gather of the
+    pool beside the ring (``"gather"``). Returns (draft_tok [B, K]
+    int32, draft_logits [B, K, V])."""
     if k_spec < 1:
         raise ValueError(f"k_spec must be >= 1, got {k_spec}")
 
@@ -185,7 +246,8 @@ def make_draft_step(cfg: ArchConfig, max_len: int, page_size: int,
             lg = forward(
                 draft_params, cur, cfg, positions=(pos + j)[:, None],
                 cache=ring, cache_index=j, page_table=page_table,
-                page_size=page_size, paged_attn="fused", pool_cache=cache,
+                page_size=page_size, paged_attn=paged_attn,
+                pool_cache=cache,
                 pool_bound=pool_bound,
             )[:, -1]
             d = sample_tokens(lg, generator, temperature)
@@ -198,12 +260,14 @@ def make_draft_step(cfg: ArchConfig, max_len: int, page_size: int,
 
 
 def make_speculative_verify_step(cfg: ArchConfig, max_len: int,
-                                 page_size: int, k_spec: int):
+                                 page_size: int, k_spec: int,
+                                 paged_attn: str = "fused"):
     """Verify half: ONE target forward over ``[t0, d_1..d_K]`` at
     positions ``pos..pos+K`` (-1 past each slot's ``spec_len``): all
     K+1 KV entries are written through the page table and attention runs
-    the paged verify kernel; then the accept rule. Returns (out
-    [B, K+1], n_acc [B]), -1 / 0 on inactive slots."""
+    the paged verify kernel (``"gather"``: the dense page gather); then
+    the accept rule. Returns (out [B, K+1], n_acc [B]), -1 / 0 on
+    inactive slots."""
 
     def verify_step(params, tokens, draft_tok, draft_lg, cache, positions,
                     active, page_table, spec_len, generator, temperature):
@@ -214,7 +278,8 @@ def make_speculative_verify_step(cfg: ArchConfig, max_len: int,
                            pos[:, None] + steps_i, -1)
         logits = forward(
             params, seq, cfg, positions=qpos, cache=cache,
-            page_table=page_table, page_size=page_size, paged_attn="fused",
+            page_table=page_table, page_size=page_size,
+            paged_attn=paged_attn,
         )
         out, n_acc = speculative_accept(logits, draft_tok, draft_lg,
                                         spec_len, generator, temperature)

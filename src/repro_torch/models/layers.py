@@ -1,12 +1,12 @@
 """Transformer building blocks for the dense decoder (the dense subset of
 ``repro/models/layers.py``): quantized linears, RMSNorm, RoPE, GQA
-attention over the paged KV pool, MLPs.
+attention over the paged KV pool or a per-slot KV ring, MLPs.
 
 Norms, softmax and attention probabilities run in f32; matmul outputs
 stay bf16, as in the reference.
 
-The paged KV pool is written IN PLACE (the reference returns a new pool
-and donates the old one).
+The paged KV pool and the ring are written IN PLACE (the reference
+returns new ones and donates the old).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.quant.config import QuantConfig
 from repro_torch.quant.packing import (
-    pack_int8_lanes, qmatmul, unpack_int8_lanes,
+    dequant_weights, pack_int8_lanes, qmatmul, unpack_int8_lanes,
 )
 
 MASK_VALUE = -1e30
@@ -47,11 +47,25 @@ class QuantizedTensor:
         return self.orig_shape[self.axis]
 
 
+def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense view of a (possibly SAMD-packed) weight in its original
+    shape."""
+    if not isinstance(w, QuantizedTensor):
+        return w
+    k = w.k
+    rest = tuple(s for i, s in enumerate(w.orig_shape) if i != w.axis)
+    dense2d = dequant_weights(w.packed, w.scale, k, w.cfg, dtype=dtype)
+    return dense2d.reshape((k,) + rest).movedim(0, w.axis)
+
+
 def apply_linear(w, x: torch.Tensor) -> torch.Tensor:
-    """x[..., K] @ w[K, N] where w is a tensor or a [K, N] QuantizedTensor
-    (every packed weight of the dense decoder is 2D, packed along K)."""
+    """x[..., K] @ w[K, N] where w is a tensor or a QuantizedTensor: a 2D
+    weight packed along axis 0 goes through ``qmatmul``, any other packed
+    layout is materialized, then multiplied."""
     if isinstance(w, QuantizedTensor):
-        return qmatmul(x, w.packed, w.scale, w.k, w.cfg)
+        if len(w.orig_shape) == 2 and w.axis == 0:
+            return qmatmul(x, w.packed, w.scale, w.k, w.cfg)
+        return torch.matmul(x, materialize(w, x.dtype))
     return torch.matmul(x, w)
 
 
@@ -205,11 +219,22 @@ def _gathered_pool_kv(pool: dict, page_table, page_size: int, dtype):
             _paged_gather(pool["v"], page_table, page_size).to(dtype))
 
 
-def _cache_write(buf, val, cache_index: int) -> None:
-    """Write ``val`` [B, S, ...] into the ring ``buf`` [B, T, ...] at
-    columns ``cache_index..cache_index + S - 1``, in place (the
-    reference's lockstep ``dynamic_update_slice``)."""
-    buf[:, cache_index:cache_index + val.shape[1]] = val.to(buf.dtype)
+def _cache_write(buf, val, cache_index) -> None:
+    """Write ``val`` [B, S, ...] into the ring ``buf`` [B, T, ...] in
+    place at time offset ``cache_index``: an int (lockstep batch: columns
+    ``cache_index..cache_index + S - 1``, the reference's
+    ``dynamic_update_slice``) or a [B] tensor (ragged batch: row i writes
+    at its own offset). Per-row offsets must be in range (the engine
+    clamps them), as in the reference."""
+    val = val.to(buf.dtype)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        b, s = val.shape[:2]
+        rows = torch.arange(b, device=buf.device)[:, None]
+        cols = (cache_index.to(torch.int64)[:, None]
+                + torch.arange(s, device=buf.device)[None, :])
+        buf[rows, cols] = val
+        return
+    buf[:, cache_index:cache_index + val.shape[1]] = val
 
 
 def _quant_kv(t: torch.Tensor):
@@ -221,6 +246,29 @@ def _quant_kv(t: torch.Tensor):
     return qv.to(torch.int8), scale
 
 
+def _ring_attention(ring: dict, q, k, v, positions, cache_index,
+                    chunk: int):
+    """Write this block's K/V and positions into the per-slot ring at
+    ``cache_index`` (int8 lanes and per-(token, kv-head) scales when the
+    ring is int8), then attend over the whole ring, masked by its
+    ``pos`` (-1 = unwritten) and causality."""
+    if ring["k"].dtype == torch.int8:
+        for name, t in (("k", k), ("v", v)):
+            tq, ts = _quant_kv(t)
+            _cache_write(ring[name], tq, cache_index)
+            _cache_write(ring[name + "_scale"], ts, cache_index)
+        _cache_write(ring["pos"], positions, cache_index)
+        k_full, v_full = (
+            (ring[n].to(torch.float32) * ring[n + "_scale"][..., None]
+             ).to(q.dtype) for n in ("k", "v"))
+    else:
+        _cache_write(ring["k"], k, cache_index)
+        _cache_write(ring["v"], v, cache_index)
+        _cache_write(ring["pos"], positions, cache_index)
+        k_full, v_full = ring["k"].to(q.dtype), ring["v"].to(q.dtype)
+    return attention(q, k_full, v_full, positions, ring["pos"], chunk=chunk)
+
+
 def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                     *, kv_cache=None, page_table=None, page_size: int = 0,
                     paged_attn: str = "gather", cache_index: int = 0,
@@ -230,7 +278,10 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     With ``kv_cache`` (one layer's pools) and ``page_table``, this token
     block's K/V are written into the pool at each token's logical
     position (bf16, or SAMD-packed int8 lanes + scales when the pool is
-    int32) before attention. ``paged_attn="fused"`` attends straight off
+    int32) before attention. Without ``page_table``, ``kv_cache`` is a
+    per-slot ring (``model.init_cache``), written at ``cache_index`` (an
+    int, or a [B] tensor of per-row offsets) and attended whole through
+    its ``pos``. ``paged_attn="fused"`` attends straight off
     the pool: one query per slot (decode) through
     ``kernels.ops.paged_decode_attention``, a block of queries per slot
     (the speculative verify) through ``kernels.ops.paged_verify_attention``;
@@ -289,6 +340,9 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                 torch.cat([pool_v, ring["v"].to(q.dtype)], dim=1), positions,
                 torch.cat([k_pos, ring["pos"].to(k_pos.dtype)], dim=1),
                 chunk=cfg.attn_chunk)
+    elif page_table is None:
+        att = _ring_attention(kv_cache, q, k, v, positions, cache_index,
+                              cfg.attn_chunk)
     else:
         pool = kv_cache
         if pool["k"].dtype == torch.int32:

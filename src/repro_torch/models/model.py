@@ -1,9 +1,13 @@
-"""Dense decoder assembly: template -> init -> forward over the paged pool.
+"""Dense decoder assembly: template -> init -> forward over the paged pool
+or the per-slot KV ring.
 
 Parameters are plain nested dicts of tensors whose leaves are declared
 once as TensorSpecs, so init and SAMD quantization derive from the same
-source (the reference's layout, with ``blocks`` a list of per-layer
-dicts: PyTorch runs eagerly, so there is no scan-over-layers variant).
+source. The port's layout has ``blocks`` as a list of per-layer dicts
+(PyTorch runs eagerly: ``forward`` loops over the layers);
+``build_template(cfg, stacked=True)`` gives the reference's
+scan-over-layers layout, a dict of leaves with a leading layer axis,
+which ``unstack_blocks`` turns into the port's (``convert`` does so).
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.spec import TensorSpec
+from repro_torch.models.layers import QuantizedTensor
+from repro_torch.models.spec import TensorSpec, map_specs
 
 
 def _attn_template(cfg: ArchConfig) -> dict:
@@ -47,9 +52,20 @@ def _mlp_template(cfg: ArchConfig) -> dict:
     return t
 
 
-def build_template(cfg: ArchConfig) -> dict:
+def _stack_spec(sp: TensorSpec, n: int) -> TensorSpec:
+    return TensorSpec(
+        (n,) + sp.shape, (None,) + sp.axes, sp.dtype, sp.init,
+        sp.init_scale,
+        None if sp.quant_axis is None else sp.quant_axis + 1,
+    )
+
+
+def build_template(cfg: ArchConfig, stacked: bool = False) -> dict:
     """Parameter template: embed, final norm, optional untied LM head and
-    one {'attn', 'mlp'} dict per layer."""
+    one {'attn', 'mlp'} dict per layer; ``stacked=True`` makes ``blocks``
+    ONE such dict whose leaves carry a leading layer axis (the
+    reference's layout when ``scan_layers`` is set, its default for
+    full-width configs)."""
     d, v = cfg.d_model, cfg.vocab
     t: dict = {
         "embed": TensorSpec((v, d), ("vocab", "embed"), init_scale=0.01),
@@ -57,11 +73,52 @@ def build_template(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = TensorSpec((d, v), ("embed", "vocab"), quant_axis=0)
-    t["blocks"] = [
-        {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
-        for _ in range(cfg.n_layers)
-    ]
+    if stacked:
+        layer = {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
+        t["blocks"] = map_specs(lambda sp: _stack_spec(sp, cfg.n_layers),
+                                layer)
+    else:
+        t["blocks"] = [
+            {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
+            for _ in range(cfg.n_layers)
+        ]
     return t
+
+
+def unstack_blocks(stacked: dict, n_layers: int) -> list:
+    """Stacked ``blocks`` -> one dict per layer, slicing axis 0 of every
+    leaf (views), as the reference's scan over layers does. A packed
+    leaf is sliced the same way, in its words and scale. Raises
+    ValueError, as the scan does, unless every leaf's leading size is
+    ``n_layers``; a packed leaf quantized from a stacked weight fails it
+    (its layers lie side by side in its columns, ``packed[:, l*N:
+    (l+1)*N]``), so neither package serves one."""
+    sizes = []
+
+    def leading(node):
+        if isinstance(node, QuantizedTensor):
+            sizes.extend([node.packed.shape[0], node.scale.shape[0]])
+        elif isinstance(node, dict):
+            for v in node.values():
+                leading(v)
+        else:
+            sizes.append(node.shape[0])
+
+    leading(stacked)
+    if any(s != n_layers for s in sizes):
+        raise ValueError(
+            "stacked blocks need every leaf's leading axis to be the "
+            f"{n_layers} layers; got leading sizes {sizes}")
+
+    def take(node, i):
+        if isinstance(node, QuantizedTensor):
+            return QuantizedTensor(node.packed[i], node.scale[i],
+                                   node.orig_shape, node.axis, node.cfg)
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    return [take(stacked, i) for i in range(n_layers)]
 
 
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
@@ -98,18 +155,31 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int,
+               dtype=torch.bfloat16, kv_bits: Optional[int] = None,
                device="cuda") -> dict:
-    """The speculative draft's tick-local KV ring: per layer bf16 ``k``/
-    ``v`` [batch, length, Hkv, dh] and ``pos`` [batch, length] int32, -1
-    where nothing was written (the reference's ``init_cache`` in the
-    layout the draft uses; no other caller needs a ring)."""
+    """Per-slot KV ring for every layer: ``k``/``v`` [batch, length, Hkv,
+    dh] in ``dtype`` and ``pos`` [batch, length] int32, -1 where nothing
+    was written; ``kv_bits=8`` holds int8 ``k``/``v`` with f32
+    ``k_scale``/``v_scale`` [batch, length, Hkv]. The engine's
+    ``kv_mode="ring"`` cache at [max_batch, max_len], and the speculative
+    draft's tick-local ring at [B, K]."""
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
 
     def ring():
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                "pos": torch.full(shape[:2], -1, dtype=torch.int32,
-                                  device=device)}
+        pos = torch.full(shape[:2], -1, dtype=torch.int32, device=device)
+        if kv_bits == 8:
+            return {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "pos": pos,
+            }
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": pos}
 
     return {"layers": [ring() for _ in range(cfg.n_layers)]}
 
@@ -130,6 +200,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             cache_index: int = 0, pool_cache: Optional[dict] = None,
             pool_bound: Optional[torch.Tensor] = None):
     """Returns logits [B, S, vocab] bf16.
+
+    ``params["blocks"]`` is a list of per-layer dicts (``unstack_blocks``
+    turns the stacked layout into one).
+
+    With ``cache`` (``init_cache``) and no ``page_table``, each layer's
+    K/V ring is written IN PLACE at ``cache_index`` (an int, or a [B]
+    tensor of per-row offsets) and attention reads the whole ring.
 
     With ``cache`` (``init_paged_cache``) and ``page_table`` [B, n_pp],
     every token's K/V is written into the pools IN PLACE at its logical

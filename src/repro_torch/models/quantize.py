@@ -4,8 +4,10 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.models.layers import QuantizedTensor
-from repro_torch.models.spec import TensorSpec
+from repro_torch.models.spec import TensorSpec, map_specs
 from repro_torch.quant.config import QuantConfig
 from repro_torch.quant.packing import pack_weights
 
@@ -13,14 +15,24 @@ from repro_torch.quant.packing import pack_weights
 _MIN_QUANT_SIZE = 1 << 16
 
 
+def _packs(spec, qcfg: QuantConfig) -> bool:
+    """The reference's rule: a leaf is packed iff its spec declares a
+    ``quant_axis``, it holds at least ``_MIN_QUANT_SIZE`` values, and it
+    has no 'vocab' axis unless ``qcfg.quantize_embeddings``."""
+    return (isinstance(spec, TensorSpec) and spec.quant_axis is not None
+            and math.prod(spec.shape) >= _MIN_QUANT_SIZE
+            and ("vocab" not in spec.axes or qcfg.quantize_embeddings))
+
+
 def quantize_params(params, template, qcfg: QuantConfig):
     """Replace every quantizable leaf with a SAMD-packed QuantizedTensor.
 
-    A leaf is packed iff its spec declares a ``quant_axis`` and it holds at
-    least ``_MIN_QUANT_SIZE`` values; leaves with a 'vocab' axis (the
-    embedding, an untied LM head) stay bf16. The rule is the reference's
-    at its default ``quantize_embeddings=False``, so both packages pack
-    the same leaves.
+    ``template`` is the TensorSpec tree of ``build_template`` (either
+    layout). A leaf is packed along its ``quant_axis`` moved first, the
+    other axes flattened into columns (``_packs`` says which leaves);
+    with ``quantize_embeddings`` an untied LM head is packed too (the
+    embedding table is gathered, never multiplied, and has no
+    ``quant_axis``).
     """
     if not qcfg.enabled:
         return params
@@ -30,11 +42,7 @@ def quantize_params(params, template, qcfg: QuantConfig):
             return {k: visit(spec[k], w[k]) for k in spec}
         if isinstance(spec, list):
             return [visit(s, x) for s, x in zip(spec, w)]
-        if not isinstance(spec, TensorSpec) or spec.quant_axis is None:
-            return w
-        if math.prod(spec.shape) < _MIN_QUANT_SIZE:
-            return w
-        if "vocab" in spec.axes:
+        if not _packs(spec, qcfg):
             return w
         axis = spec.quant_axis
         k = spec.shape[axis]
@@ -43,3 +51,24 @@ def quantize_params(params, template, qcfg: QuantConfig):
         return QuantizedTensor(packed, scale, tuple(spec.shape), axis, qcfg)
 
     return visit(template, params)
+
+
+def quantized_spec_tree(template, qcfg: QuantConfig):
+    """The packed parameter tree's shapes without packing anything:
+    meta tensors where ``quantize_params`` would put tensors (packed
+    words [ceil(K/vpw), rest] int32, scale [1 or K // group_size, rest]
+    f32)."""
+
+    def visit(spec):
+        if not qcfg.enabled or not _packs(spec, qcfg):
+            return torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+        k = spec.shape[spec.quant_axis]
+        rest = math.prod(spec.shape) // k
+        groups = 1 if qcfg.group_size is None else k // qcfg.group_size
+        return QuantizedTensor(
+            torch.empty((-(-k // qcfg.values_per_word), rest),
+                        dtype=torch.int32, device="meta"),
+            torch.empty((groups, rest), dtype=torch.float32, device="meta"),
+            tuple(spec.shape), spec.quant_axis, qcfg)
+
+    return map_specs(visit, template)

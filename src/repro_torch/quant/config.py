@@ -13,19 +13,32 @@ class QuantConfig:
     enabled:  master switch; False = bf16 weights everywhere.
     spacer:   'permanent' keeps one guard bit per lane (32/(b+1) values
               per word); 'temporary' packs dense (32/b values per word).
-    kv_bits:  8 = the paged KV pool holds SAMD-packed int8 lanes with a
-              per-(token, kv-head) scale; None = bf16 pool.
+    group_size: scale granularity along the reduction axis; None = one
+              scale per output channel.
+    quantize_embeddings: pack the leaves with a 'vocab' axis too (an
+              untied LM head; the embedding table is never a matmul
+              weight of the forward); False keeps them bf16.
+    act_bits: bit width of quantized activations; None = float. It has
+              no effect on the forward: the lane-safety analysis reads
+              it (``analysis.contracts``: the f32 accumulator's
+              integer-exactness bound).
+    kv_bits:  8 = the KV cache holds int8 lanes with a per-(token,
+              kv-head) scale (SAMD-packed words in the paged pool);
+              None = bf16.
 
-    Packed linears always run the SAMD matmul kernel
-    (``kernels.ops.samd_matmul``, the reference's ``backend="pallas"``);
-    embeddings and the LM head stay bf16. Per-group scales, quantized
-    embeddings and activation fake-quant (training) are not part of the
-    port yet.
+    An ungrouped packed linear runs the SAMD matmul kernel
+    (``kernels.ops.samd_matmul``); a group-scaled one is dequantized and
+    multiplied with ``torch.matmul`` (``quant.packing.qmatmul``). The
+    reference's ``backend`` field has no counterpart: the port has one
+    route for each scale layout.
     """
 
     bits: int = 4
     enabled: bool = True
     spacer: Literal["permanent", "temporary"] = "temporary"
+    group_size: Optional[int] = None
+    quantize_embeddings: bool = False
+    act_bits: Optional[int] = None
     kv_bits: Optional[int] = None
 
     @property

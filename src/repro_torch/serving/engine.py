@@ -1,6 +1,6 @@
 """Batched serving engine: paged KV pool + one ragged decode step per tick.
 
-The PyTorch port of the paged path of ``repro/serving/engine.py``. The
+The PyTorch port of ``repro/serving/engine.py`` (dense family). The
 scheduling contract is the reference's:
 
   * fixed ``max_batch`` decode slots; host-side slot state (position,
@@ -47,11 +47,25 @@ scheduling contract is the reference's:
     verifies by rejection sampling. Lookahead pages come from the
     reservation or the free list and never preempt (``_spec_lens``).
 
-Not ported yet: the per-slot KV ring (``kv_mode="ring"``; ``kv_mode``
-reads ``"paged"``) and the per-row reference decode.
+Modes, resolved as the reference resolves them:
 
-The KV pools (``self.cache``) are written in place by every step (the
-reference donates them to its jitted steps instead).
+  * ``paged_attn="fused"`` (default) runs decode attention through the
+    fused paged decode kernel (and the speculative ring fold and verify
+    kernels); ``"gather"`` gathers each slot's pages into a dense view
+    (the reference path);
+  * ``kv_mode="ring"`` keeps a fixed per-slot KV ring [max_batch,
+    max_len] instead of the page pool: batched prefill writes a fresh
+    ring and replaces the admitted slots' rows, the ragged decode step
+    writes each row at its own column. No pages, no prefix sharing, no
+    speculative decoding. ``"auto"`` (default) is ``"paged"`` under
+    ragged decode and ``"ring"`` under per-row decode;
+  * ``decode_mode="per_row"`` is the reference's equivalence baseline:
+    one exact-length prefill (``_prefill_one``) and one ``forward`` per
+    active slot per tick (``_decode_rows_reference``) over the ring,
+    counted in ``per_row_prefill_calls`` / ``per_row_forward_calls``.
+
+The KV cache (``self.cache``) is written in place by every step (the
+reference donates it to its jitted steps instead).
 """
 from __future__ import annotations
 
@@ -67,7 +81,7 @@ from repro_torch.analysis import contracts
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.model import (
-    build_template, copy_paged_page, init_paged_cache,
+    build_template, copy_paged_page, forward, init_cache, init_paged_cache,
 )
 from repro_torch.models.quantize import quantize_params
 from repro_torch.models.spec import init_from_spec
@@ -236,9 +250,12 @@ class ServingEngine:
                  quant: QuantConfig | None = None,
                  max_batch: int = 4, max_len: int = 512, seed: int = 0,
                  temperature: float = 0.0,
+                 decode_mode: str = "ragged",
+                 kv_mode: str = "auto",
                  page_size: int = 16,
                  num_pages: Optional[int] = None,
                  admission: str = "reserve",
+                 paged_attn: str = "fused",
                  prefix_sharing: bool = True,
                  prefix_retain: Optional[int] = None,
                  max_queue: Optional[int] = None,
@@ -254,20 +271,43 @@ class ServingEngine:
         target's weights) packs the draft from them too. A quantized
         target is its own draft: ``draft_quant`` with it raises.
         ``clock`` (default ``time.monotonic``) stamps the requests."""
+        if decode_mode not in ("ragged", "per_row"):
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if paged_attn not in ("fused", "gather"):
+            raise ValueError(f"unknown paged_attn {paged_attn!r}")
         if speculative < 0:
             raise ValueError(f"speculative must be >= 0, got {speculative}")
         if max_queue is not None and max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        # the page pool needs the batched admission path; the per-row
+        # reference path slices per-slot cache rows, so it runs the ring
+        paged_capable = decode_mode == "ragged"
+        if kv_mode == "auto":
+            kv_mode = "paged" if paged_capable else "ring"
+        if kv_mode not in ("paged", "ring"):
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        if kv_mode == "paged" and not paged_capable:
+            raise ValueError(
+                "kv_mode='paged' needs decode_mode='ragged' and an "
+                f"attention family, got {decode_mode}/{cfg.family}"
+            )
         self.cfg = cfg
         self.device = torch.device(device)
-        self.kv_mode = "paged"
+        self.decode_mode = decode_mode
+        self.kv_mode = kv_mode
+        self.paged_attn = paged_attn
         self.max_batch = max_batch
         self.max_len = max_len
         self.temperature = float(temperature)
         self.admission = admission
-        self.prefix_sharing = bool(prefix_sharing)
+        self.prefix_sharing = bool(prefix_sharing) and kv_mode == "paged"
+        if speculative and (kv_mode != "paged" or decode_mode != "ragged"):
+            raise ValueError(
+                "speculative decoding needs kv_mode='paged' and "
+                f"decode_mode='ragged', got {kv_mode}/{decode_mode}"
+            )
         self.page_size = page_size
         self.pages_per_slot = -(-max_len // page_size)
         if num_pages is None:
@@ -299,15 +339,25 @@ class ServingEngine:
                     quantize_params(raw_params, template, dq)
                     if dq.enabled else self.params)
             self._draft_step = steps_mod.make_draft_step(
-                cfg, max_len, page_size, self.speculative)
+                cfg, max_len, page_size, self.speculative, paged_attn)
             self._verify_step = steps_mod.make_speculative_verify_step(
-                cfg, max_len, page_size, self.speculative)
+                cfg, max_len, page_size, self.speculative, paged_attn)
         if verify:
             self._verify_lane_safety()
-        self._decode_step = steps_mod.make_paged_ragged_serve_step(
-            cfg, max_len, page_size)
-        self._prefill_step = steps_mod.make_paged_prefill_step(
-            cfg, page_size)
+        # batched prefill needs position-masked padding: the ragged path
+        # (paged or ring); the per-row path prefills one slot at a time
+        self._batched_prefill = paged_capable
+        if kv_mode == "paged":
+            self._decode_step = steps_mod.make_paged_ragged_serve_step(
+                cfg, max_len, page_size, paged_attn)
+            self._prefill_step = steps_mod.make_paged_prefill_step(
+                cfg, page_size)
+        else:
+            self._decode_step = steps_mod.make_ragged_serve_step(
+                cfg, max_len)
+            if self._batched_prefill:
+                self._prefill_step = steps_mod.make_batched_prefill_step(
+                    cfg, max_len, max_batch, self._kv_bits)
         self.cache = self._init_cache()
         self._gen = torch.Generator(device=self.device).manual_seed(
             seed ^ 0x5EED)
@@ -343,6 +393,8 @@ class ServingEngine:
         self.stats = {
             "decode_steps": 0,          # ragged decode invocations
             "prefill_calls": 0,         # batched prefill invocations
+            "per_row_prefill_calls": 0,  # per-row path: one a request
+            "per_row_forward_calls": 0,  # per-row path: one a slot a tick
             "page_grants": 0,           # incremental mid-decode page allocs
             "prefix_hits": 0,           # pages mapped shared at admission
             "prefix_tokens_saved": 0,   # prompt tokens prefill skipped
@@ -379,8 +431,18 @@ class ServingEngine:
                 contracts.assert_safe(contracts.check_matmul_config(qcfg, k))
 
     def _init_cache(self):
-        return init_paged_cache(self.cfg, self.num_pages, self.page_size,
-                                kv_bits=self._kv_bits, device=self.device)
+        if self.kv_mode == "paged":
+            return init_paged_cache(self.cfg, self.num_pages,
+                                    self.page_size, kv_bits=self._kv_bits,
+                                    device=self.device)
+        return init_cache(self.cfg, self.max_batch, self.max_len,
+                          kv_bits=self._kv_bits, device=self.device)
+
+    def kv_cache_bytes(self) -> int:
+        """Resident bytes of the KV cache (the page pool, scratch page
+        included, or the ring)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.cache["layers"] for t in layer.values())
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -592,23 +654,30 @@ class ServingEngine:
                     )
                     continue
                 slot = free[len(batch)]
-                status, start = self._paged_bind(slot, req, eff,
-                                                 pending_ready)
-                if status == "wait":
-                    self.queue.appendleft(req)
-                    stalled = True
-                    break
-                if status == "reject":
-                    continue
+                start = 0
+                if self.kv_mode == "paged":
+                    status, start = self._paged_bind(slot, req, eff,
+                                                     pending_ready)
+                    if status == "wait":
+                        self.queue.appendleft(req)
+                        stalled = True
+                        break
+                    if status == "reject":
+                        continue
                 batch.append(req)
                 batch_slots.append(slot)
                 batch_effs.append(eff)
                 batch_starts.append(start)
             if not batch:
                 return
-            self._prefill_batch(batch_slots, batch, batch_effs, batch_starts)
-            self._prefix_ready.update(
-                p for p in pending_ready if p in self._page_key)
+            if self._batched_prefill:
+                self._prefill_batch(batch_slots, batch, batch_effs,
+                                    batch_starts)
+                self._prefix_ready.update(
+                    p for p in pending_ready if p in self._page_key)
+            else:
+                for slot, req in zip(batch_slots, batch):
+                    self._prefill_one(slot, req)
             if stalled:
                 return
 
@@ -616,7 +685,9 @@ class ServingEngine:
                        effs: list[np.ndarray], starts: list[int]):
         """Admit N requests with ONE forward: each row carries its
         UNSHARED suffix, right-padded to a shared bucket, written at
-        positions ``start..len-1`` through its slot's page table."""
+        positions ``start..len-1`` through its slot's page table (paged),
+        or its whole prompt into a fresh ring whose row then replaces its
+        slot's row (ring)."""
         lens = [len(e) - s for e, s in zip(effs, starts)]
         lb = _bucket_len(max(lens), self.max_len)
         nb = self.max_batch
@@ -629,24 +700,56 @@ class ServingEngine:
             lens_a[row] = lens[row]
             starts_a[row] = st
             valid[row] = True
-        # table truncated to the batch's used page columns (pow2 bucket),
-        # covering the shared prefix blocks the suffix attends to
-        max_blocks = max(-(-len(e) // self.page_size) for e in effs)
-        width = self._pow2_width(max_blocks)
-        route = np.full((nb, width), -1, np.int32)
-        for row, slot in enumerate(slots):
-            route[row] = self.page_table[slot, :width]
-        tok0 = self._prefill_step(
-            self.params, self._to_device(tokens.astype(np.int64)),
-            self._to_device(lens_a.astype(np.int64)),
-            self._to_device(starts_a.astype(np.int64)),
-            self._to_device(route), self._to_device(valid), self.cache,
-            self._gen, self.temperature,
-        )
+        tokens_t = self._to_device(tokens.astype(np.int64))
+        lens_t = self._to_device(lens_a.astype(np.int64))
+        if self.kv_mode == "paged":
+            # table truncated to the batch's used page columns (pow2
+            # bucket), covering the shared prefix blocks the suffix
+            # attends to
+            max_blocks = max(-(-len(e) // self.page_size) for e in effs)
+            width = self._pow2_width(max_blocks)
+            route = np.full((nb, width), -1, np.int32)
+            for row, slot in enumerate(slots):
+                route[row] = self.page_table[slot, :width]
+            tok0 = self._prefill_step(
+                self.params, tokens_t, lens_t,
+                self._to_device(starts_a.astype(np.int64)),
+                self._to_device(route), self._to_device(valid), self.cache,
+                self._gen, self.temperature,
+            )
+        else:
+            route = np.zeros(nb, np.int64)
+            route[:len(slots)] = slots
+            tok0 = self._prefill_step(
+                self.params, tokens_t, lens_t, self._to_device(route),
+                self._to_device(valid), self.cache, self._gen,
+                self.temperature,
+            )
         self.stats["prefill_calls"] += 1
         tok0 = tok0.cpu().numpy()
         for row, (slot, req) in enumerate(zip(slots, reqs)):
             self._finish_admit(slot, req, effs[row], int(tok0[row]))
+
+    def _prefill_one(self, slot: int, req: Request):
+        """Exact-length prefill of one request into its slot's ring row
+        (the per-row path). The row is reset first, so the previous
+        occupant's K/V and positions cannot leak."""
+        eff = self._eff_prompt(req)
+        fresh = init_cache(self.cfg, 1, self.max_len, kv_bits=self._kv_bits,
+                           device=self.device)
+        row_cache = {"layers": []}
+        for ring, new in zip(self.cache["layers"], fresh["layers"]):
+            for name, c in ring.items():
+                c[slot:slot + 1] = new[name]
+            row_cache["layers"].append(
+                {name: c[slot:slot + 1] for name, c in ring.items()})
+        tokens = self._to_device(eff.astype(np.int64))[None]
+        logits = forward(self.params, tokens, self.cfg, cache=row_cache,
+                         cache_index=0)
+        self.stats["per_row_prefill_calls"] += 1
+        tok0 = int(steps_mod.sample_tokens(logits[:, -1], self._gen,
+                                           self.temperature)[0])
+        self._finish_admit(slot, req, eff, tok0)
 
     def _finish_admit(self, slot: int, req: Request, eff: np.ndarray,
                       tok0: int):
@@ -690,7 +793,9 @@ class ServingEngine:
     def _release_pages(self, slot: int):
         """Drop every page reference ``slot`` holds and cancel its unused
         reservation; with retention, last-reference indexed pages park in
-        the LRU pool instead of freeing."""
+        the LRU pool instead of freeing. Nothing to do for the ring."""
+        if self.kv_mode != "paged":
+            return
         held = self.page_table[slot][self.page_table[slot] >= 0]
         if held.size:
             if self.prefix_retain > 0:
@@ -864,21 +969,26 @@ class ServingEngine:
         self._admit()
         if not self.active.any():
             return False
-        self._grant_pages()
-        if not self.active.any():
-            return True  # progress: slots were preempted or retired
+        if self.kv_mode == "paged":
+            self._grant_pages()
+            if not self.active.any():
+                return True  # progress: slots were preempted or retired
         if self.speculative:
             return self._step_speculative()
-        next_ids = self._decode_step(
-            self.params,
-            self._to_device(self.slot_next[:, None].astype(np.int64)),
-            self.cache, self._to_device(self.slot_pos),
-            self._to_device(self.active),
-            self._to_device(self._active_table()),
-            self._gen, self.temperature,
-        )
-        self.stats["decode_steps"] += 1
-        next_ids = next_ids.cpu().numpy()  # the one host sync per tick
+        if self.decode_mode == "ragged":
+            args = [
+                self.params,
+                self._to_device(self.slot_next[:, None].astype(np.int64)),
+                self.cache, self._to_device(self.slot_pos),
+                self._to_device(self.active),
+            ]
+            if self.kv_mode == "paged":
+                args.append(self._to_device(self._active_table()))
+            next_ids = self._decode_step(*args, self._gen, self.temperature)
+            self.stats["decode_steps"] += 1
+            next_ids = next_ids.cpu().numpy()  # the one host sync per tick
+        else:
+            next_ids = self._decode_rows_reference()
         for i in np.nonzero(self.active)[0]:
             self._advance_slot(int(i), int(next_ids[i]))
         return True
@@ -918,6 +1028,30 @@ class ServingEngine:
             # slot retiring mid-run discards the rest of its run
             self.stats["draft_accepted"] += min(used, int(n_acc[i]))
         return True
+
+    def _decode_rows_reference(self) -> np.ndarray:
+        """The per-row reference decode: one ``forward`` per active slot
+        over a view of its ring row, written at its own column. The
+        equivalence baseline; never used by ``decode_mode="ragged"``."""
+        out = np.full(self.max_batch, -1, np.int64)
+        for i in range(self.max_batch):
+            if not self.active[i]:
+                continue
+            row_cache = {"layers": [
+                {name: c[i:i + 1] for name, c in ring.items()}
+                for ring in self.cache["layers"]]}
+            pos = int(self.slot_pos[i])
+            lg = forward(
+                self.params,
+                self._to_device(self.slot_next[i:i + 1, None].astype(
+                    np.int64)),
+                self.cfg, positions=self._to_device(
+                    self.slot_pos[i:i + 1, None].astype(np.int64)),
+                cache=row_cache, cache_index=pos)
+            self.stats["per_row_forward_calls"] += 1
+            out[i] = int(steps_mod.sample_tokens(lg[:, -1], self._gen,
+                                                 self.temperature)[0])
+        return out
 
     def run_to_completion(self, max_ticks: int = 10_000):
         """Tick until every submitted request retired, or ``max_ticks``;

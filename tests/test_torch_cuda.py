@@ -899,3 +899,157 @@ def test_conv_kernels_refuse_what_they_do_not_take(cuda):
         sc.samd_conv_chunks_cuda(torch.zeros(8, device=cuda),
                                  torch.zeros(1, dtype=torch.int32,
                                              device=cuda), plan)
+
+
+# -- the engine's other modes, qwen3-14b's shapes, shared-memory budgets ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(5120, 151936), (17408, 5120)])
+def test_splitk_launcher_at_qwen3_14b_lm_head_and_wd(cuda, k, n):
+    """qwen3-14b's packed LM head (K 5120, N 151936) and wd (K 17408,
+    N 5120) at decode M = 8: the split-K launcher alone, within TOL of
+    its plain version, bit-identical on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfg = QuantConfig(bits=4)
+    packed, scale = pack_weights(
+        torch.randn(k, n, generator=gen, device=cuda) * 0.02, cfg)
+    x = torch.randn(8, k, generator=gen, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    got = ops.samd_matmul(x, packed, scale, k, cfg)
+    counts = ops.launch_counts()
+    assert counts["samd_matmul_splitk_launch"] == 1
+    assert sum(counts.values()) == 1, counts
+    assert torch.equal(got, ops.samd_matmul(x, packed, scale, k, cfg))
+    _close(got, mm.samd_matmul_plain(x, packed, scale, k, cfg))
+
+
+@pytest.mark.cuda
+def test_smem_estimates_cover_each_launchers_own_bytes(cuda, tmp_path,
+                                                       monkeypatch):
+    """The shared-memory estimators of ``analysis.contracts`` give at
+    least each kernel's own bytes (the source's query: the runtime's
+    static bytes of the compiled kernel plus the dynamic bytes its
+    launcher passes) and at most the H100's 227 KB, at every plan the
+    launchers can take. The query counts at least ptxas's static shared
+    memory from a fresh build's log, and gives the same bytes on the
+    package's own (possibly cached) build, which has no log."""
+    import re
+    import types
+
+    from repro_torch.analysis import contracts
+    from repro_torch.core.samd import conv_format
+    from repro_torch.kernels import _build
+
+    with monkeypatch.context() as mp:
+        mp.setattr(_build, "BUILD_DIR", tmp_path)
+        fresh = [_build.Kernel(k.name, k.source.name, k.functions)
+                 for k in (mm.KERNEL, sc.KERNEL)]
+        _build.build_all(fresh)
+        for k in fresh:
+            k.lib()  # load the fresh libraries while BUILD_DIR points there
+    kmm, kconv = fresh
+
+    def static(kern, family):
+        best, fn = 0, ""
+        for line in kern.build_log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line and family in fn:
+                got = re.search(r"(\d+) bytes smem", line)
+                best = max(best, int(got.group(1)) if got else 0)
+        return best
+
+    def own(fresh_kern, kern, fn, *args):
+        got = fresh_kern.query(fn, *args)
+        assert got == kern.query(fn, *args), (fn, args)
+        return got
+
+    limit = contracts.SMEM_LIMIT_BYTES
+    s_mm = static(kmm, "samd_mma_kernel")
+    for fn, ms in ((mm.SPLITK, (1, 5, 8, 24, 32)), (mm.TILE, (33, 64, 1024))):
+        for vpw in (1, 2, 3, 4, 5, 6, 8, 10, 16, 32):
+            for m in ms:
+                for splits in (1, 2, 8):
+                    got = own(kmm, mm.KERNEL, "samd_matmul_smem_bytes",
+                              int(fn == mm.TILE), m, vpw, splits)
+                    est = contracts.matmul_smem_bytes(fn, m, vpw, splits)
+                    assert s_mm <= got <= est <= limit, (
+                        fn, m, vpw, splits, got, est)
+    s_mma = static(kconv, "conv_mma_kernel")
+    for bits in (2, 4, 8, 10, 16):
+        cfg = QuantConfig(bits=bits)
+        vpw = cfg.values_per_word
+        for x_bf16 in (True, False):
+            wide = bits > 9
+            if wide and vpw > 3 and not x_bf16:
+                continue
+            for launcher in (sc.DIRECT, sc.IM2COL):
+                plan = sc.conv2d_plan(64, -(-64 // vpw), 28, 28, 3, 3, 128,
+                                      1, vpw, x_bf16, launcher)
+                pre = static(kconv, "im2col_x_kernel" if launcher ==
+                             sc.IM2COL else "stage_x_kernel")
+                got = own(kconv, sc.KERNEL, "samd_conv2d_smem_bytes", vpw,
+                          int(x_bf16), int(wide), int(launcher == sc.IM2COL))
+                est = contracts.conv2d_smem_bytes(plan, vpw, wide)
+                assert max(s_mma, pre) <= got <= est <= limit, (
+                    bits, x_bf16, launcher)
+    s_c1d = static(kconv, "samd_conv1d_kernel")
+    for bits in (2, 3, 4):
+        plan = conv.ConvPlan(conv_format(bits, 3, True), 3)
+        for dtype, x_code in ((torch.int8, 0), (torch.int64, 4)):
+            p = sc.conv1d_plan(1 << 20, plan, dtype)
+            got = own(kconv, sc.KERNEL, "samd_conv1d_smem_bytes",
+                      p.tile_chunks, p.lanes, x_code)
+            est = contracts.conv1d_smem_bytes(
+                types.SimpleNamespace(tile_chunks=p.tile_chunks,
+                                      lanes=p.lanes), dtype.itemsize)
+            assert s_c1d <= got <= est <= 48 * 1024, (bits, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dict(kv_mode="ring"),
+                                  dict(paged_attn="gather"),
+                                  dict(decode_mode="per_row")],
+                         ids=["ring", "gather", "per_row"])
+def test_engine_modes_on_card_run_no_plain_version(cuda, monkeypatch, mode):
+    """Ring, gather and per-row engines on the card (4-bit weights) with
+    every plain version patched to raise: each serves every request in
+    full through the split-K and tile launchers, launches no attention
+    kernel, and gives the fused paged engine's tokens for most requests
+    (attention runs in another order, so a near-tie may part)."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = smoke_config("qwen3-14b").scaled(d_model=256, head_dim=64,
+                                           d_ff=512, vocab=256)
+    prompts = [(torch.arange(5 + 3 * i) * 7 + i).numpy() % 256
+               for i in range(6)]
+
+    def run(**kw):
+        eng = ServingEngine(cfg, None, quant=QuantConfig(bits=4),
+                            max_batch=4, max_len=64, page_size=8,
+                            device=cuda, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_tokens=10))
+        return eng, {r.rid: r.generated for r in eng.run_to_completion()}
+
+    _, fused = run()
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((mm, "samd_matmul_plain"),
+                      (pa, "paged_decode_attention_plain"),
+                      (pa, "paged_verify_attention_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    ops.reset_launch_counts()
+    eng, got = run(**mode)
+    counts = ops.launch_counts()
+    assert counts["samd_matmul_splitk_launch"] > 0, counts
+    if "decode_mode" not in mode:  # per-row prefills are prompt-long: M <= 32
+        assert counts["samd_matmul_tile_launch"] > 0, counts
+    assert sum(counts.values()) == (counts["samd_matmul_splitk_launch"]
+                                    + counts["samd_matmul_tile_launch"])
+    assert all(len(t) == 10 for t in got.values()) and len(got) == 6
+    assert sum(got[i] == fused[i] for i in got) * 2 >= len(got)
+    if "decode_mode" in mode:
+        assert eng.stats["per_row_forward_calls"] > 0

@@ -1,6 +1,7 @@
 """Import boundary of the port: repro_torch and chip_smoke.py import
-neither JAX nor anything of the reference package ``repro``, and the
-kernel modules import (and their plain versions run) with no nvcc."""
+neither JAX nor anything of the reference package ``repro`` or of its
+``benchmarks`` package, and the kernel modules import (and their plain
+versions run) with no nvcc."""
 import os
 import pathlib
 import re
@@ -14,12 +15,14 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+    r"^\s*(import\s+(jax|repro|benchmarks)\b"
+    r"|from\s+(jax|repro|benchmarks)(\.|\s))", re.M)
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None       # any import of jax now raises
 sys.modules["repro"] = None     # ... and of the reference package
+sys.modules["benchmarks"] = None  # ... and of its benchmarks
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
@@ -50,8 +53,8 @@ def test_port_sources_have_no_forbidden_imports():
 
 
 def test_port_imports_without_jax_repro_or_nvcc(tmp_path):
-    """Every module imports in a process where ``jax`` and ``repro`` are
-    blocked, with no nvcc on PATH or under CUDA_HOME; a CPU tensor then
+    """Every module imports in a process where ``jax``, ``repro`` and
+    ``benchmarks`` are blocked, with no nvcc on PATH or under CUDA_HOME; a CPU tensor then
     runs a kernel's plain version."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")

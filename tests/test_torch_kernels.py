@@ -361,13 +361,17 @@ def test_matmul_launcher_rule():
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("m", [1, 8, 24, 32, 33, 256, 1024])
 @pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 2816), (2816, 1024),
-                                 (203, 70)])
+                                 (203, 70), (5120, 17408), (17408, 5120),
+                                 (5120, 151936)])
 def test_matmul_split_rule(m, k, n, bits):
     """Every split keeps at least one K-step of 16 words and together they
     cover K exactly once, in at most 8 splits (one cluster); no split
-    where the output tiles reach half the launcher's block target; the
-    main path's decode shapes (4- and 8-bit weights) run at least 132
-    blocks (2-bit K = 1024 has only 4 K-steps of 16 words: 128)."""
+    where the output tiles reach the launcher's ``NO_SPLIT_TILES`` (the
+    split-K launcher's whole block target, the tile launcher's half), and
+    a split-K launch under it with steps to spare splits (qwen3-14b's wg
+    and wu, 544 tiles, among them); the main path's decode shapes (4-
+    and 8-bit weights) run at least 132 blocks (2-bit K = 1024 has only
+    4 K-steps of 16 words: 128)."""
     vpw = 32 // bits
     splits, per = mm.split_k(m, n, k, vpw)
     steps = max(1, math.ceil(math.ceil(k / vpw) / mm.STEP_WORDS))
@@ -376,8 +380,10 @@ def test_matmul_split_rule(m, k, n, bits):
     fn = mm.launcher_for(m)
     bn, bm = mm.BLOCK[fn]
     tiles = -(-n // bn) * -(-m // bm)
-    if 2 * tiles >= mm.BLOCK_TARGET[fn]:
+    if tiles >= mm.NO_SPLIT_TILES[fn]:
         assert splits == 1
+    elif fn == mm.SPLITK and steps > 1:
+        assert splits > 1
     if m == 8 and k >= 1024 and bits in (4, 8):
         assert tiles * splits >= mm.NUM_SMS
 

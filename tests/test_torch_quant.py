@@ -130,7 +130,7 @@ def test_qmatmul_routes_match_jax(backend):
     route (the SAMD matmul kernel; its plain version here), through the
     weight bridge's ``quant_config``, on f32 activations: summation
     order only, so rtol = 1e-5 and atol = 1e-5 of the output scale. The
-    bridge refuses configs the port cannot serve."""
+    bridge carries the rest of the config across."""
     from repro_torch.models.convert import quant_config
 
     rng = np.random.default_rng(3)
@@ -140,9 +140,9 @@ def test_qmatmul_routes_match_jax(backend):
     jcfg = JQuantConfig(bits=4, spacer="permanent", backend=backend)
     cfg = quant_config(jcfg)
     assert cfg == QuantConfig(bits=4, spacer="permanent")
-    with pytest.raises(NotImplementedError):
-        quant_config(JQuantConfig(bits=4, backend=backend,
-                                  quantize_embeddings=True))
+    assert quant_config(JQuantConfig(bits=4, backend=backend,
+                                     quantize_embeddings=True)) == \
+        QuantConfig(bits=4, quantize_embeddings=True)
     jp, js = j_pack_weights(jnp.asarray(w), jcfg)
     want = np.asarray(j_qmatmul(jnp.asarray(x), jp, js, k, jcfg))
     tp, ts = packing.pack_weights(torch.from_numpy(w), cfg)

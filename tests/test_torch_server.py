@@ -54,8 +54,7 @@ from repro_torch.serving.metrics import parse_prometheus  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 STAMPS = ("t_submit", "t_admit", "t_first_token", "t_retire")
-# the reference's counters of its per-row paths, which the port does not
-# have; they stay 0 in these runs and are left out of the comparisons
+# the counters of the per-row path, which these ragged runs never take
 PER_ROW = ("per_row_prefill_calls", "per_row_forward_calls")
 
 
@@ -81,16 +80,17 @@ class _Ticks:
 
 
 def _ref_stats(jeng):
-    """The reference engine's stats without ``PER_ROW`` (which read 0)."""
+    """The reference engine's stats (``PER_ROW`` reads 0 in these runs)."""
     assert all(jeng.stats[k] == 0 for k in PER_ROW)
-    return {k: v for k, v in jeng.stats.items() if k not in PER_ROW}
+    return dict(jeng.stats)
 
 
 def _ref_snapshot(jserver):
-    """The reference server's snapshot text without ``PER_ROW``'s lines."""
-    return "".join(
-        line for line in jserver.metrics_snapshot().splitlines(True)
-        if not any(f"samd_engine_{k}_total" in line for k in PER_ROW))
+    """The reference server's snapshot text, ``PER_ROW``'s lines
+    included (the port's engine counts them too)."""
+    text = jserver.metrics_snapshot()
+    assert all(f"samd_engine_{k}_total" in text for k in PER_ROW)
+    return text
 
 
 def _record(reqs):
@@ -369,13 +369,12 @@ def test_verify_accepts_and_refuses_what_the_reference_does(
 
 @pytest.mark.parametrize("spacer", ["temporary", "permanent"])
 def test_matmul_check_refuses_no_depth_the_port_expresses(spacer):
-    """No (bits, K) that the port's QuantConfig expresses is refused by
-    either package's own matmul check, at any depth: both certify lanes
-    that only store codes, whose safety does not depend on K. The
-    reference refuses only with ``act_bits`` set (the f32 accumulator's
-    exactness under activation fake-quant), and the port's QuantConfig
-    has no such field, which is why the refusal parity above runs on a
-    check made to refuse."""
+    """No (bits, K) without ``act_bits`` is refused by either package's
+    own matmul check, at any depth: both certify lanes that only store
+    codes, whose safety does not depend on K. Both refuse only with
+    ``act_bits`` set (the f32 accumulator's exactness under quantized
+    activations), and then both admissions refuse the same depth with
+    the same message."""
     for bits in range(1, 17):
         for k in (1, 7, K, 2 ** 24 + 1, 2 ** 30):
             for signed in (True, False):
@@ -384,14 +383,15 @@ def test_matmul_check_refuses_no_depth_the_port_expresses(spacer):
                 t = contracts.check_matmul_config(
                     QuantConfig(bits=bits, spacer=spacer), k, signed=signed)
                 assert t.ok and j.ok and t.status == j.status, (bits, k)
-    # what the reference's check does refuse, its admission refuses
-    # through the same stand-in; the port cannot build that config
+    # what the reference's check does refuse, both admissions refuse
+    # through the same stand-in
     verdict, msg = _outcome(lambda: JServingEngine._verify_lane_safety(
         _stand_in("ref", JQuantConfig(bits=8, act_bits=8, spacer=spacer),
                   False)), JLaneSafetyError)
     assert verdict == "refused" and f"K={K}" in msg
-    with pytest.raises(TypeError):
-        QuantConfig(bits=8, act_bits=8, spacer=spacer)
+    assert _outcome(lambda: ServingEngine._verify_lane_safety(_stand_in(
+        "port", QuantConfig(bits=8, act_bits=8, spacer=spacer), False)),
+        LaneSafetyError) == (verdict, msg)
 
 
 def test_verify_refuses_in_the_constructor(monkeypatch):
