@@ -159,6 +159,42 @@ Phases, any failure exits non-zero:
       construction exactly where K x 2^(bits-1) x 2^7 passes 2^24
       (qwen1.5-0.5b at 4 and 8 bits, qwen3-14b at 4 bits); and
       ``python -m repro_torch.analysis.certify`` reports 0 unsafe.
+      (h5) runs after (i), so it covers (i)'s launch plans too.
+
+  (i) the reference's other families at full width, seeded random
+      weights, 4-bit with the LM head packed (``quantize_embeddings``),
+      (c)'s workload (16 greedy requests, prompts of 32-256 tokens drawn
+      from each arch's vocabulary, 32 new tokens, ``max_batch=8``,
+      ``max_len=512``, ``page_size=16``): decode attention first checked
+      against its plain version at olmoe-1b-7b's shape (16 heads, G = 1,
+      dh = 128) and nemotron-4-15b's (8 kv-heads, G = 6), bf16 and int8
+      pools; then (i1) olmoe-1b-7b (16 layers, d 2048, 64 experts top-8,
+      expert d_ff 1024, vocab 50304) on the paged pool with fused
+      attention, bf16 KV: the main path of this slice, its experts
+      dequantized by ``materialize`` as the reference does; (i2)
+      rwkv6-3b (32 layers, d 2560, d_ff 8960, vocab 65536) and (i3)
+      zamba2-7b (``ZAMBA2_LAYERS`` of its 81 layers, d 3584, 32 heads of
+      dh 112, ssm_state 64, shared attention after every 6th layer) on
+      the ring, which ``kv_mode="auto"`` picks for them. Each run must
+      finish every request untruncated and launch exactly its launchers
+      (split-K, tile, and decode attention for olmoe; no per-row
+      forward on the ring); its logits agree with the plain versions run
+      on the card within ``MODEL_TOL`` (paged: (c)'s check; ring: per-row
+      prefills into a fresh cache, then a decode token a row); the same
+      engine then serves the same requests with the plain versions, and
+      the kernels' greedy tokens must equal those or part where a full
+      forward of the prefix has a top-1/top-2 logit margin under
+      ``MODEL_TOL`` of the largest logit or, for MoE, where the routed
+      expert sets of the kernels and the plain versions differ only at
+      tokens whose k-th / (k+1)-th router probabilities are that close;
+      (b)'s checks and (d)'s device times run at each distinct (K, N) of
+      the run's own packed weights at M = 8 and at a prefill (1024 rows
+      for olmoe, 256 for the per-row prefills of the ring), its LM head,
+      and olmoe's decode attention over its pools. Each run prints tick
+      ms, tokens/s and peak GiB (serving and built); olmoe also the
+      share of a decode step's device time its experts' dequantize
+      takes (CUDA events around every ``layers.materialize`` call inside
+      the engine's decode steps).
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -172,6 +208,7 @@ import asyncio
 import collections
 import contextlib
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -272,6 +309,8 @@ THREAD_AB_ORDER = (False, True, True, False)
 SLO_TOKEN_BUDGET = 30.0
 # bound on one row's serving: a dead serve loop leaves every stream open
 FRONT_DOOR_TIMEOUT_S = 240
+# (i) zamba2-7b's depth in its run: its published 81 layers, no cut
+ZAMBA2_LAYERS = 81
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -641,11 +680,11 @@ def check_ring_fold(dev, gen):
 
 # -- (c) and (e) serving -----------------------------------------------------
 
-def workload(seed, n=N_REQUESTS, max_tokens=MAX_TOKENS):
+def workload(seed, n=N_REQUESTS, max_tokens=MAX_TOKENS, vocab=151936):
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(seed)
-    return [Request(rid=i, prompt=rng.integers(0, 151936,
+    return [Request(rid=i, prompt=rng.integers(0, vocab,
                                                size=int(rng.integers(32, 257))
                                                ).astype(np.int32),
                     max_tokens=max_tokens)
@@ -677,10 +716,12 @@ def time_speculative_steps(eng):
 
 
 def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
-          max_tokens=MAX_TOKENS, **engine_kw):
-    """Serve the first ``n`` requests of the workload, ``max_tokens``
-    each, with ``ServingEngine(arch, **engine_kw)`` (default
-    QWEN15_05B); the launchers in ``expect`` must launch and no other.
+          max_tokens=MAX_TOKENS, on_engine=None, **engine_kw):
+    """Serve the first ``n`` requests of the workload (prompts drawn from
+    the arch's vocabulary), ``max_tokens`` each, with
+    ``ServingEngine(arch, **engine_kw)`` (default QWEN15_05B); the
+    launchers in ``expect`` must launch and no other. ``on_engine(eng)``
+    runs after the engine is built, before it serves (instrumentation).
     Returns (engine, summary dict, launch counts)."""
     from repro_torch.configs.archs import QWEN15_05B
     from repro_torch.kernels import ops
@@ -695,7 +736,9 @@ def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
     t_init = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev)
     marks = time_speculative_steps(eng) if eng.speculative else None
-    for r in workload(seed + 1, n, max_tokens):
+    if on_engine is not None:
+        on_engine(eng)
+    for r in workload(seed + 1, n, max_tokens, cfg.vocab):
         eng.submit(r)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -767,13 +810,16 @@ def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
     return eng, summary, counts
 
 
-def check_greedy(eng, plain, dev, reqs=None, against="plain decode"):
+def check_greedy(eng, plain, dev, reqs=None, against="plain decode",
+                 tol=MODEL_TOL):
     """The tokens of ``reqs`` (default: ``eng``'s finished requests)
     against plain greedy decode's (``plain``, finished requests of the
     same workload and target weights): identical, or parting at a token
     where a full forward of the prefix on the card gives a top-1/top-2
-    margin under MODEL_TOL of the largest logit. Returns the count of
-    identical requests."""
+    margin under ``tol`` (MODEL_TOL unless the model's measured rounding
+    sensitivity is larger) of the largest logit, or, for MoE, where the
+    routed experts differ only at near-tied router probabilities.
+    Returns the count of identical requests."""
     from repro_torch.models.model import forward
 
     want = {r.rid: (r.prompt, r.generated) for r in plain}
@@ -791,7 +837,12 @@ def check_greedy(eng, plain, dev, reqs=None, against="plain decode"):
                      eng.cfg)[0, -1].float()
         top2 = torch.topk(lg, 2).values
         margin = (top2[0] - top2[1]).item()
-        limit = MODEL_TOL * lg.abs().max().item()
+        limit = tol * lg.abs().max().item()
+        if margin > limit and eng.cfg.family == "moe":
+            router = router_near_tie(eng, toks, dev)
+            if router is not None:
+                margins.append(f"router {router:.5f}")
+                continue
         if margin > limit:
             raise AssertionError(
                 f"request {r.rid} parts from {against} at token {j} "
@@ -799,7 +850,8 @@ def check_greedy(eng, plain, dev, reqs=None, against="plain decode"):
         margins.append(round(margin / lg.abs().max().item(), 5))
     log(f"  greedy vs {against}: {identical} of {len(reqs)} requests "
         f"token-identical; the others part at near-ties (margin / max "
-        f"logit {margins})")
+        f"logit, or of a routed token's k-th and (k+1)-th expert "
+        f"probability over its largest: {margins})")
     return identical
 
 
@@ -1056,16 +1108,18 @@ class OldAttention:
         return self._run(VERIFY, q, out, args, k_scale is not None)
 
 
-def time_samd_matmul(dev, timer, params, label, m, old=None):
-    """Per-launch times at M = ``m`` rows over the 24 layers' weights
+def time_samd_matmul(dev, timer, params, label, m, old=None, linears=None):
+    """Per-launch times at M = ``m`` rows over the layers' weights
     (``params``, packed) of each linear, so the weights come from HBM as
-    in a tick. Device time (the 24 launches in a CUDA graph, replayed) of
+    in a tick; ``linears`` [(name, [weights])] replaces DECODE_LINEARS
+    over ``params["blocks"]`` (the other families: one entry a distinct
+    (K, N)). Device time (the 24 launches in a CUDA graph, replayed) of
     the kernel, of the previous kernel when ``old`` is given (in turns
     old, new, new, old) and of dense bf16 ``torch.matmul`` (the
     yardstick); host-paced time (the Timer, which also pays each call's
     host dispatch) of the kernel and the yardstick; the plain version;
     and the wrapper's host time per call (1000 calls, no sync). Returns
-    the means over the 7 linears."""
+    the means over the linears."""
     from repro_torch.kernels import samd_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.quant.packing import dequant_weights
@@ -1074,8 +1128,10 @@ def time_samd_matmul(dev, timer, params, label, m, old=None):
             "library_host_paced_ms", "plain_ms", "bound_ms", "bytes", "ops")
     tot = dict.fromkeys(keys, 0.0)
     rows = []
-    for part, name in DECODE_LINEARS:
-        ws = [blk[part][name] for blk in params["blocks"]]
+    if linears is None:
+        linears = [(name, [blk[part][name] for blk in params["blocks"]])
+                   for part, name in DECODE_LINEARS]
+    for name, ws in linears:
         k, nn = ws[0].orig_shape
         cfg = ws[0].cfg
         x = torch.randn(m, k, device=dev).to(torch.bfloat16)
@@ -1117,7 +1173,7 @@ def time_samd_matmul(dev, timer, params, label, m, old=None):
         row["ops"] = 2 * m * k * nn
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"])
         row["tflops"] = row["ops"] / row["ms"] / 1e9
-        if name == DECODE_LINEARS[0][1]:
+        if name == linears[0][0]:
             w0 = ws[0]
             row["host_us_per_call"] = host_us_per_call(
                 lambda: ops.samd_matmul(x, w0.packed, w0.scale, k, cfg))
@@ -1135,7 +1191,7 @@ def time_samd_matmul(dev, timer, params, label, m, old=None):
     out["host_us_per_call"] = rows[0]["host_us_per_call"]
     if old is None:
         del out["old_ms"]
-    log(f"  samd_matmul ({label}) mean of the 7 linears: " + json.dumps(
+    log(f"  samd_matmul ({label}) mean of the {n} linears: " + json.dumps(
         {k: (round(v, 6) if isinstance(v, float) else v)
          for k, v in out.items()}))
     return out
@@ -2270,7 +2326,7 @@ def serve_modes(dev, c_done, c_sum):
     return out
 
 
-def time_lm_head(dev, timer, head, m):
+def time_lm_head(dev, timer, head, m, arch="qwen3-14b"):
     """The packed LM head at M = ``m`` rows: device time of one launch in
     a CUDA graph beside dense bf16 ``torch.matmul`` on its dequantized
     weight, host-paced times, the plain version, the bound."""
@@ -2292,7 +2348,7 @@ def time_lm_head(dev, timer, head, m):
     n_bytes = (x.numel() * 2 + head.packed.numel() * 4
                + head.scale.numel() * 4 + m * n * 2)
     row = timing_row(
-        f"samd_matmul (qwen3-14b LM head, M={m})", graph_ms(kern),
+        f"samd_matmul ({arch} LM head, M={m})", graph_ms(kern),
         timer(lambda: mm.samd_matmul_plain(x, head.packed, head.scale, k,
                                            cfg), iters=3),
         graph_ms(lib), n_bytes, 2 * m * k * n, k=k, n=n,
@@ -2471,6 +2527,465 @@ def check_analysis(dev, launch_log):
     if rc != 0 or "0 unsafe" not in text:
         raise AssertionError(f"certify: {text}")
     return dict(smem_plans=len(rows), act_bits=verdicts, certify=text)
+
+
+# -- (i) the reference's other families at full width -----------------------
+
+def run_families(dev, timer, gen, launch_log,
+                 layers=(None, None, ZAMBA2_LAYERS)):
+    """(i): decode attention at olmoe's and nemotron's shapes, then
+    ``serve_family`` for olmoe-1b-7b (paged), rwkv6-3b and zamba2-7b
+    (ring), each at ``layers`` (None: its published depth). Returns
+    ({arch: summary}, the kernels line's entries)."""
+    from repro_torch.configs.archs import OLMOE_1B_7B, RWKV6_3B, ZAMBA2_7B
+
+    attn = check_family_attention(dev, gen)
+    families, entries = {}, []
+    for (cfg, expect, prefill_m, attn_err), n in zip((
+            (OLMOE_1B_7B, {SPLITK, TILE, DECODE}, 1024,
+             attn["olmoe-1b-7b", "bf16"]),
+            (RWKV6_3B, {SPLITK, TILE}, 256, None),
+            (ZAMBA2_7B, {SPLITK, TILE}, 256, None)), layers):
+        cfg = cfg.scaled(n_layers=n or cfg.n_layers)
+        t0 = time.perf_counter()
+        summary, counts, head_n, errs, t = serve_family(
+            dev, timer, gen, launch_log, cfg, expect, prefill_m)
+        summary["phase_s"] = round(time.perf_counter() - t0, 1)
+        families[cfg.name] = summary
+        entries += family_entries(cfg, counts, head_n, errs, t, attn_err,
+                                  prefill_m)
+    return families, entries
+
+
+def check_family_attention(dev, gen):
+    """Decode attention at olmoe-1b-7b's shape (16 heads, G = 1, dh =
+    128) and nemotron-4-15b's (8 kv-heads, G = 6, dh = 128), bf16 and
+    packed int8 pools, against the plain version; two calls
+    bit-identical, an empty slot exact zeros. Returns the max |kernel -
+    plain| keyed by (arch, KV format)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    errs = {}
+    for arch, hkv, g in (("olmoe-1b-7b", 16, 1), ("nemotron-4-15b", 8, 6)):
+        for packed in (False, True):
+            args, kw = paged_case(dev, gen, 8, hkv, g, 128, 16, 32, packed,
+                                  [40, -1, 255, 16, 15, 300, 0, 490])
+            got = ops.paged_decode_attention(*args, **kw)
+            if not torch.equal(got, ops.paged_decode_attention(*args, **kw)):
+                raise AssertionError(f"{arch}: two decode calls differ")
+            if not (got[1] == 0).all():
+                raise AssertionError(f"{arch}: an empty slot must emit 0")
+            errs[arch, "int8" if packed else "bf16"] = max_err(
+                got, pa.paged_decode_attention_plain(*args, **kw), BF16_TOL)
+    log("  paged_decode_attention at olmoe's (G=1) and nemotron's (G=6) "
+        "shapes, dh=128: max |kernel - plain| = " + json.dumps(
+            {f"{a} {f}": e for (a, f), e in errs.items()}))
+    return errs
+
+
+def packed_linears(params):
+    """The packed 2D linears of a parameter tree (the matmul launchers'
+    weights), grouped by (K, N) in tree order."""
+    from repro_torch.models.layers import QuantizedTensor
+
+    groups = collections.defaultdict(list)
+
+    def visit(node):
+        if isinstance(node, QuantizedTensor):
+            if len(node.orig_shape) == 2 and node.axis == 0:
+                groups[tuple(node.orig_shape)].append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+
+    visit(params)
+    return dict(groups)
+
+
+def check_linears(dev, gen, groups, ms):
+    """(b) at a served model's shapes, on its own packed weights: the
+    first weight of each (K, N) at each M of ``ms``, launching
+    ``launcher_for(M)`` only, bit-identical on a second call, within
+    BF16_TOL of its plain version element by element and BF16_RMS_TOL as
+    a whole. Returns the max |kernel - plain| keyed by (K, N, M)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_matmul as mm
+
+    errs, rms = {}, {}
+    for (k, n), ws in groups.items():
+        w = ws[0]
+        for m in ms:
+            x = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            before = ops.launch_counts()
+            got = ops.samd_matmul(x, w.packed, w.scale, k, w.cfg)
+            moved = {f for f, c in ops.launch_counts().items()
+                     if c != before[f]}
+            if moved != {mm.launcher_for(m)}:
+                raise AssertionError(f"K={k} N={n} M={m} launched {moved}")
+            if not torch.equal(got, ops.samd_matmul(x, w.packed, w.scale,
+                                                    k, w.cfg)):
+                raise AssertionError(f"two calls differ at K={k} N={n}")
+            want = mm.samd_matmul_plain(x, w.packed, w.scale, k, w.cfg)
+            errs[k, n, m] = max_err(got, want, BF16_TOL)
+            rms[k, n, m] = rel_rms(got, want)
+            if rms[k, n, m] > BF16_RMS_TOL:
+                raise AssertionError(f"K={k} N={n} M={m}: relative RMS "
+                                     f"{rms[k, n, m]:.4g}")
+    log("  samd_matmul at the run's (K, N, M), its own weights: max |kernel "
+        "- plain| = " + json.dumps({str(key): e for key, e in errs.items()})
+        + "; relative RMS = " + json.dumps(
+            {str(key): round(r, 7) for key, r in rms.items()}))
+    return errs
+
+
+class DequantProbe:
+    """CUDA events around each decode step of ``eng`` and around every
+    ``layers.materialize`` call inside one (the experts' dequantize in
+    ``moe_block``): the dequantize share of a decode tick's device
+    time. ``close()`` restores both."""
+
+    def __init__(self, eng):
+        from repro_torch.models import layers
+
+        self.ticks, self._eng, self._layers = [], eng, layers
+        self._materialize, self._step = layers.materialize, eng._decode_step
+        current = []
+
+        def events():
+            return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def timed_materialize(w, dtype=torch.bfloat16):
+            if not current:
+                return self._materialize(w, dtype)
+            a, b = events()
+            a.record()
+            out = self._materialize(w, dtype)
+            b.record()
+            current[-1].append((a, b))
+            return out
+
+        def timed_step(*args):
+            a, b = events()
+            current.append([])
+            a.record()
+            out = self._step(*args)
+            b.record()
+            self.ticks.append((a, b, current.pop()))
+            return out
+
+        layers.materialize = timed_materialize
+        eng._decode_step = timed_step
+
+    def close(self):
+        self._layers.materialize = self._materialize
+        self._eng._decode_step = self._step
+
+    def summary(self):
+        torch.cuda.synchronize()
+        tick = [a.elapsed_time(b) for a, b, _ in self.ticks]
+        deq = [sum(x.elapsed_time(y) for x, y in spans)
+               for _, _, spans in self.ticks]
+        return dict(
+            decode_steps=len(tick),
+            materialize_calls_per_step=len(self.ticks[0][2]),
+            step_device_ms_median=round(float(np.median(tick)), 3),
+            dequant_ms_median=round(float(np.median(deq)), 3),
+            dequant_share=round(sum(deq) / sum(tick), 4))
+
+
+def routes(eng, toks, dev, context):
+    """Each MoE layer's (router probabilities, chosen experts) of a full
+    forward of ``toks`` under ``context``."""
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward
+
+    rec, orig = [], layers.top_k_lower_first
+
+    def record(probs, k):
+        vals, idx = orig(probs, k)
+        rec.append((probs.float(), idx))
+        return vals, idx
+
+    layers.top_k_lower_first = record
+    try:
+        with context():
+            forward(eng.params, torch.from_numpy(toks[None]).long().to(dev),
+                    eng.cfg)
+    finally:
+        layers.top_k_lower_first = orig
+    return rec
+
+
+def router_near_tie(eng, toks, dev):
+    """The router's counterpart of the logit near-tie: over every layer
+    of a full forward of ``toks`` through the kernels and through the
+    plain versions, the tokens whose expert SETS differ; the largest of
+    their k-th / (k+1)-th probability margins over the token's largest
+    probability, if every one is under MODEL_TOL, else None (no set
+    differs, or one differs at a clear margin)."""
+    k = eng.cfg.top_k
+    worst = []
+    for (pk, ik), (_, ip) in zip(
+            routes(eng, toks, dev, contextlib.nullcontext),
+            routes(eng, toks, dev, plain_versions)):
+        differ = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        if differ.any():
+            srt = pk[differ].sort(-1, descending=True).values
+            worst.append(((srt[:, k - 1] - srt[:, k]) / srt[:, 0])
+                         .max().item())
+    if not worst or max(worst) > MODEL_TOL:
+        return None
+    return max(worst)
+
+
+@contextlib.contextmanager
+def regrouped_plain():
+    """The plain versions with the matmul's f32 sums regrouped (K blocks
+    of 32 words instead of 128): a control that moves nothing but where
+    f32 rounds, so what it does to the logits is the model's own
+    sensitivity to rounding."""
+    from repro_torch.kernels import samd_matmul as mm
+
+    plain = mm.samd_matmul_plain
+    mm.samd_matmul_plain = functools.partial(plain, block_kw=32)
+    try:
+        with plain_versions():
+            yield
+    finally:
+        mm.samd_matmul_plain = plain
+
+
+def teacher_forced(eng, dev, toks):
+    """Every block of a full forward of ``toks`` (no cache) through the
+    kernels on the plain versions' own input to it: the plain run
+    records each block's input and output; the kernels' run computes
+    each block on the recorded input and passes the recorded output on,
+    so no block inherits another's rounding. Returns ([(block, kernels'
+    output, plain output)], kernels' logits, plain logits); the logits
+    differ only in the LM head."""
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.model import forward
+
+    sites = [(ssm, "rwkv6_time_mix"), (ssm, "rwkv6_channel_mix"),
+             (ssm, "mamba2_block"), (layers, "attention_block"),
+             (layers, "mlp_block"), (layers, "moe_block")]
+    saved = {(mod, name): getattr(mod, name) for mod, name in sites}
+    plain_io, kern_out = [], []
+
+    def run(record, context):
+        for (mod, name), fn in saved.items():
+            def wrapped(p, x, *args, _fn=fn, _name=name, **kw):
+                if record:
+                    out = _fn(p, x, *args, **kw)
+                    plain_io.append((_name, x, out))
+                    return out
+                name_i, x_i, out_i = plain_io[len(kern_out)]
+                assert name_i == _name, (name_i, _name)
+                kern_out.append(_fn(p, x_i, *args, **kw))
+                return out_i
+            setattr(mod, name, wrapped)
+        try:
+            with context():
+                return forward(eng.params, toks, eng.cfg).float()
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+
+    want = run(True, plain_versions)
+    got = run(False, contextlib.nullcontext)
+    if len(kern_out) != len(plain_io):
+        raise AssertionError("the two runs called different blocks")
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    blocks = [(name, first(k), first(out))
+              for (name, _, out), k in zip(plain_io, kern_out)]
+    return blocks, got, want
+
+
+def check_ring_model_against_plain(eng, dev):
+    """The ring families' logits through the kernels and through the
+    plain versions, both on the card.
+
+    Free-running: per-row prefills of 24 and 19 tokens into a fresh
+    ``init_cache`` (as the engine admits), then one decode token a row
+    at its own position; beside it the same through ``regrouped_plain``
+    (the control). Random-weight recurrent stacks amplify a one-step
+    bf16 rounding difference with depth (PERF.md section 6), so the
+    kernels must agree within ``max(MODEL_TOL, 2 x the control's
+    error)`` of the scale. Teacher-forced: every block on the plain
+    versions' own input (``teacher_forced``), each within MODEL_TOL of
+    its output's scale, and the logits through the LM head likewise.
+    Returns a dict of the errors (over the scale) and ``tol``, the
+    near-tie tolerance the greedy check uses."""
+    from repro_torch.models.model import forward, init_cache
+    from repro_torch.serving.engine import _row_views
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(7)
+    lens = (24, 19)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 24))).to(dev)
+    dec = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1))).to(dev)
+    pos = torch.tensor(lens, device=dev)
+
+    def logits(context):
+        cache = init_cache(cfg, 2, 32, device=dev)
+        with context():
+            pre = [forward(eng.params, toks[i:i + 1, :n], cfg,
+                           cache=_row_views(cache, i), cache_index=0)[0]
+                   for i, n in enumerate(lens)]
+            nxt = forward(eng.params, dec, cfg, positions=pos[:, None],
+                          cache=cache, cache_index=pos)
+        return torch.cat(pre).float(), nxt.float()
+
+    got = logits(contextlib.nullcontext)
+    want = logits(plain_versions)
+    control = logits(regrouped_plain)
+    if got[1].shape != (2, 1, cfg.vocab):
+        raise AssertionError(f"logits shape {tuple(got[1].shape)}")
+    scale = want[0].abs().max().item()
+
+    def rel(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b)) / scale
+
+    control_err = rel(control, want)
+    tol = max(MODEL_TOL, 2 * control_err)
+    errs = [max_err(a, b, tol) / scale for a, b in zip(got, want)]
+    blocks, tf_got, tf_want = teacher_forced(eng, dev, toks[:1])
+    worst = collections.defaultdict(float)
+    for name, k_out, p_out in blocks:
+        e = max_err(k_out, p_out, MODEL_TOL) / p_out.abs().max().item()
+        worst[name] = max(worst[name], e)
+    tf_logits = max_err(tf_got, tf_want, MODEL_TOL) / scale
+    out = dict(prefill=errs[0], decode=errs[1], control=control_err,
+               tol=tol, blocks=len(blocks), block_worst=dict(worst),
+               teacher_forced_logits=tf_logits)
+    log(f"  full-width logits ({cfg.name}, {cfg.n_layers} layers, ring and "
+        f"recurrent state), kernels vs plain on the card, max err over the "
+        f"scale {scale:.4g}: prefill {errs[0]:.4g}, decode {errs[1]:.4g}; "
+        f"the regrouped-sum control {control_err:.4g}, so the limit is "
+        f"{tol:.4g}; teacher-forced, each of {len(blocks)} blocks within "
+        f"{MODEL_TOL} (worst by kind {json.dumps(worst)}), the logits "
+        f"{tf_logits:.4g}")
+    return out
+
+
+def serve_family(dev, timer, gen, launch_log, cfg, expect, prefill_m):
+    """(i) one full-width family run: ``cfg`` 4-bit with its LM head
+    packed serves (c)'s 16 requests (``expect``: the launchers it must
+    launch, and no other); its logits against the plain versions on the
+    card; the same engine then serves the same requests with the plain
+    versions (``reset()`` between) and the kernels' greedy tokens must
+    equal those or part at a near-tie (logit or router); (b)'s checks
+    and (d)'s device times at its (K, N) on its own weights, at decode
+    (M = 8) and at ``prefill_m`` rows, its LM head, and (olmoe) decode
+    attention. Returns (summary, counts, LM-head launches, errs,
+    timings)."""
+    from repro_torch.quant.config import QuantConfig
+
+    probe = []
+    before = launch_log.matmul()
+    eng, summary, counts = serve(
+        f"{cfg.name} ({cfg.n_layers} layers), 4-bit, LM head packed",
+        dev, expect, arch=cfg,
+        quant=QuantConfig(bits=4, quantize_embeddings=True),
+        on_engine=(lambda e: probe.append(DequantProbe(e)))
+        if cfg.family == "moe" else None)
+    shapes = launch_log.matmul() - before
+    stats, kern_done = dict(eng.stats), list(eng.finished)
+    if probe:
+        probe[0].close()
+        summary["dequant"] = probe[0].summary()
+    summary["kv_mode"] = eng.kv_mode
+    summary["stats"] = {k: stats[k] for k in (
+        "decode_steps", "prefill_calls", "per_row_prefill_calls",
+        "per_row_forward_calls")}
+    if eng.kv_mode == "ring" and stats["per_row_forward_calls"]:
+        raise AssertionError(f"{cfg.name}: per-row forwards on the ring")
+    head_n = sum(c for key, c in shapes.items()
+                 if key[0] == SPLITK and key[2] == cfg.vocab)
+    if not head_n:
+        raise AssertionError(f"{cfg.name}: the LM head never ran split-K")
+    if eng.kv_mode == "paged":
+        pre, dec, scale, _ = check_model_against_plain(eng, dev,
+                                                       plain_on_card=True)
+        summary["model_errs"] = dict(prefill=pre / scale,
+                                     decode=dec / scale)
+        tol = MODEL_TOL
+    else:
+        summary["model_errs"] = check_ring_model_against_plain(eng, dev)
+        tol = summary["model_errs"]["tol"]
+    eng.reset()
+    with plain_versions():
+        for r in workload(1, vocab=cfg.vocab):
+            eng.submit(r)
+        plain_done = eng.run_to_completion()
+    if any(r.error or r.truncated or len(r.generated) != MAX_TOKENS
+           for r in plain_done):
+        raise AssertionError(f"{cfg.name}: the plain run fell short")
+    summary["identical"] = check_greedy(
+        eng, plain_done, dev, reqs=kern_done,
+        against="the plain versions' run on the card", tol=tol)
+    log(f"  {cfg.name} serving: " + json.dumps(summary))
+    groups = packed_linears(eng.params)
+    errs = check_linears(dev, gen, groups, (eng.max_batch, prefill_m))
+    body = [(f"K={k} N={n}", ws) for (k, n), ws in groups.items()
+            if n != cfg.vocab]
+    t = dict(
+        decode=time_samd_matmul(dev, timer, None,
+                                f"{cfg.name} decode, M={eng.max_batch}",
+                                eng.max_batch, linears=body),
+        head=time_lm_head(dev, timer, eng.params["lm_head"],
+                          eng.max_batch, cfg.name),
+        prefill=time_samd_matmul(dev, timer, None,
+                                 f"{cfg.name} prefill, M={prefill_m}",
+                                 prefill_m, linears=body))
+    if DECODE in expect:
+        t["attention"] = time_paged_attention(eng, dev, timer, False, gen)
+    del eng
+    torch.cuda.empty_cache()
+    return summary, counts, head_n, errs, t
+
+
+def family_entries(cfg, counts, head_n, errs, t, attn_err, prefill_m):
+    """The kernels line's entries of one (i) run."""
+    tag = f"{cfg.name}, {cfg.n_layers} layers"
+    mm_src = "src/repro/kernels/samd_matmul.py:123"
+    body_errs = [e for (k, n, m), e in errs.items() if n != cfg.vocab]
+    out = [
+        kernel_entry(
+            f"samd_matmul split-K ({tag}, decode linears, M=8)", MM_SOURCE,
+            mm_src, counts[SPLITK] - head_n,
+            max(e for (k, n, m), e in errs.items()
+                if n != cfg.vocab and m == 8), t["decode"],
+            f"(i) 4-bit, mean per launch over the distinct (K, N) of the "
+            f"layers' linears; device times"),
+        kernel_entry(
+            f"samd_matmul split-K ({tag}, LM head, M=8)", MM_SOURCE, mm_src,
+            head_n, errs[cfg.d_model, cfg.vocab, 8], t["head"],
+            f"(i) K={cfg.d_model} N={cfg.vocab}, 4-bit "
+            "(quantize_embeddings); device times"),
+        kernel_entry(
+            f"samd_matmul tile ({tag}, prefill)", MM_SOURCE, mm_src,
+            counts[TILE], max(body_errs + [errs[cfg.d_model, cfg.vocab,
+                                                prefill_m]]),
+            t["prefill"], f"(i) prefills, the LM head's included; numbers "
+            f"of M={prefill_m} over the distinct (K, N) of the layers"),
+    ]
+    if attn_err is not None:
+        out.append(kernel_entry(
+            f"paged_decode_attention ({tag}, bf16 KV)", PA_SOURCE,
+            "src/repro/kernels/paged_attention.py:294", counts[DECODE],
+            attn_err, t["attention"],
+            f"(i) decode B=8 H=Hkv={cfg.n_kv_heads} G=1 dh={cfg.head_dim} "
+            "ps=16 n_pp=32, per layer of the run's pools; device times"))
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, err, t, shape):
@@ -2759,12 +3274,24 @@ def main() -> int:
         g_counts[DECODE], err_q3["attention"], q3_attn,
         "(h4) the group-scaled run (its linears dequantize, no matmul "
         "launcher); numbers of (d)'s qwen3-14b kernel-only row"))
+    log(f"(i) the reference's other families at full width (card: {card})")
+    # (i)'s peaks are its own: drop the engines of (c)-(h)
+    runs = {key: (None,) + run[1:] for key, run in runs.items()}
+    del eng, eng_a, eng_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  allocated before (i): "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+
+    families, entries = run_families(dev, timer, gen, launch_log)
+    kernels += entries
     analysis = check_analysis(dev, launch_log)
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
     log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
     log("qwen3-14b: " + json.dumps(dict(q3_sum, group_scales=g_sum)))
     log("analysis: " + json.dumps(analysis))
+    log("families: " + json.dumps(families))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

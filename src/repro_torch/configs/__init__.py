@@ -1,1 +1,2 @@
-"""Architecture configs: dense decoders and the VGG-B conv layers."""
+"""Architecture configs: the reference's ten architectures and the VGG-B
+conv layers."""

@@ -1,4 +1,4 @@
-"""Architecture and shape configuration (the dense subset of
+"""Architecture and shape configuration (the port's copy of
 ``repro.configs.base``)."""
 from __future__ import annotations
 
@@ -7,34 +7,57 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One dense decoder architecture (public-literature config).
+    """One architecture (public-literature config).
 
     Field names and defaults are the reference's, so a test can build the
     same configuration in both packages from the same keyword arguments.
+    ``scan_layers`` is kept for that: the reference's scan-over-layers
+    layout is unstacked by ``models.convert`` and the port's forward
+    always loops over a list of layers.
     """
 
     name: str
-    family: str            # only 'dense' in the port so far
+    family: str            # 'dense' | 'moe' | 'rwkv6' | 'hybrid_mamba2'
     n_layers: int
     d_model: int
     vocab: int
+    # attention (0 => attention-free arch)
     n_heads: int = 0
     n_kv_heads: int = 0
     head_dim: int = 0
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e6
+    # MLP
     d_ff: int = 0
-    activation: str = "swiglu"      # only 'swiglu' is ported
+    activation: str = "swiglu"      # 'swiglu' | 'sq_relu' | 'gelu'
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    dense_residual: bool = False
+    capacity_factor: float = 1.25
+    moe_group_tokens: int = 2048
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    attn_every: int = 0             # hybrid: shared attn block cadence
+    # RWKV6
+    rwkv_head_dim: int = 64
+    lora_rank: int = 64
+    # modality frontend stub
+    frontend: str = "none"          # 'none' | 'audio' | 'vision'
+    n_prefix_embeds: int = 0
+    # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    subquadratic: bool = False      # can run long_500k
     attn_chunk: int = 1024
+    scan_layers: bool = True
 
     def __post_init__(self):
-        if self.family != "dense":
-            raise ValueError(
-                f"the port runs dense decoders only, got {self.family!r}"
-            )
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 

@@ -1,6 +1,7 @@
-"""Transformer building blocks for the dense decoder (the dense subset of
-``repro/models/layers.py``): quantized linears, RMSNorm, RoPE, GQA
-attention over the paged KV pool or a per-slot KV ring, MLPs.
+"""Transformer building blocks (the port of ``repro/models/layers.py``):
+quantized linears, RMSNorm, RoPE, GQA attention over the paged KV pool or
+a per-slot KV ring, MLPs (swiglu, squared ReLU, gelu) and the
+capacity-based MoE.
 
 Norms, softmax and attention probabilities run in f32; matmul outputs
 stay bf16, as in the reference.
@@ -10,9 +11,11 @@ returns new ones and donates the old).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.quant.config import QuantConfig
@@ -379,7 +382,7 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -387,9 +390,117 @@ def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.activation == "swiglu":
         gate = apply_linear(p["wg"], xn)
         up = apply_linear(p["wu"], xn)
-        hid = torch.nn.functional.silu(gate.to(torch.float32)).to(
-            x.dtype) * up
+        hid = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    elif cfg.activation == "sq_relu":
+        up = apply_linear(p["wu"], xn)
+        r = torch.relu(up)
+        hid = r * r
+    elif cfg.activation == "gelu":
+        up = apply_linear(p["wu"], xn)
+        # jax.nn.gelu's default is the tanh approximation
+        hid = F.gelu(up.to(torch.float32), approximate="tanh").to(x.dtype)
     else:
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet")
+        raise ValueError(cfg.activation)
     return apply_linear(p["wd"], hid)
+
+
+# ---------------------------------------------------------------------------
+# MoE (grouped capacity-based dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(group_tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    c = int(group_tokens * top_k * capacity_factor / n_experts)
+    return max(c, 1)
+
+
+@contextlib.contextmanager
+def _true_f32():
+    """f32 matmuls in f32, not TF32, whatever the process-wide setting
+    (the router's top-k must see the reference's probabilities)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def top_k_lower_first(probs: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last axis,
+    equal values ordered lower index first, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` promises no order among ties): a stable
+    descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg, *, group_tokens: int = 2048):
+    """Top-k routed experts with per-group capacity (GShard-style).
+
+    x: [B, S, D]. Groups are contiguous spans of ``group_tokens`` tokens
+    (one row's, since ``S % group_tokens == 0``); within a group each
+    expert takes at most ``moe_capacity`` tokens, slot 0's choices first
+    in token order, then slot 1's, and the rest are dropped. The router
+    runs in f32 and the experts (packed along their D or F axis) are
+    dequantized to bf16 with ``materialize`` for bf16 einsums, as in the
+    reference. Returns (out [B, S, D], Switch-style load-balance aux
+    loss, a scalar f32).
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gt = min(group_tokens, s)
+    if s % gt:
+        raise ValueError(f"sequence {s} is not a whole number of "
+                         f"{gt}-token groups")
+    ng = b * (s // gt)
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    xg = xn.reshape(ng, gt, d)
+
+    with _true_f32():
+        router_logits = torch.einsum(
+            "gtd,de->gte", xg.to(torch.float32),
+            p["router"].to(torch.float32))
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, gate_idx = top_k_lower_first(probs, k)  # [ng, gt, k]
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # load-balance auxiliary loss (Switch-style)
+    me = probs.mean(dim=1)                                          # [ng, e]
+    ce = F.one_hot(gate_idx[..., 0], e).to(torch.float32).mean(dim=1)
+    aux = (me * ce).mean() * (e * e)
+
+    cap = moe_capacity(gt, e, k, cfg.capacity_factor)
+    # position of each token within its expert, k-slot priority order
+    dispatch = torch.zeros((ng, gt, e, cap), dtype=torch.bfloat16,
+                           device=x.device)
+    combine = torch.zeros((ng, gt, e, cap), dtype=torch.float32,
+                          device=x.device)
+    counts = torch.zeros((ng, e), dtype=torch.int64, device=x.device)
+    for slot in range(k):
+        mask = F.one_hot(gate_idx[..., slot], e)                # [ng, gt, e]
+        pos = torch.cumsum(mask, dim=1) - 1 + counts[:, None, :]
+        counts = counts + mask.sum(dim=1)
+        keep = (pos < cap) & (mask > 0)
+        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1).to(
+            torch.bfloat16)[..., :cap]                     # [ng, gt, e, cap]
+        sel = pos_oh * mask[..., None].to(torch.bfloat16)
+        dispatch = dispatch + sel
+        combine = combine + sel.to(torch.float32) * gate_vals[
+            ..., slot][..., None, None]
+
+    xin = torch.einsum("gtec,gtd->gecd", dispatch, xg.to(torch.bfloat16))
+    h1 = torch.einsum("gecd,edf->gecf", xin, materialize(p["w_up"]))
+    if cfg.activation == "swiglu":
+        hg = torch.einsum("gecd,edf->gecf", xin, materialize(p["w_gate"]))
+        h = F.silu(hg.to(torch.float32)).to(torch.bfloat16) * h1
+    else:
+        h = F.silu(h1.to(torch.float32)).to(torch.bfloat16)
+    y = torch.einsum("gecf,efd->gecd", h, materialize(p["w_down"]))
+    out = torch.einsum("gtec,gecd->gtd", combine.to(torch.bfloat16), y)
+    out = out.reshape(b, s, d).to(x.dtype)
+
+    if cfg.dense_residual:
+        out = out + mlp_block(p["dense"], x, cfg)
+    return out, aux

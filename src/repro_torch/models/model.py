@@ -1,5 +1,8 @@
-"""Dense decoder assembly: template -> init -> forward over the paged pool
-or the per-slot KV ring.
+"""Decoder assembly: template -> init -> forward over the paged pool, the
+per-slot KV ring or the recurrent state.
+
+One code path serves all four families ('dense', 'moe', 'rwkv6',
+'hybrid_mamba2'); each layer's block kind follows from the ArchConfig.
 
 Parameters are plain nested dicts of tensors whose leaves are declared
 once as TensorSpecs, so init and SAMD quantization derive from the same
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import QuantizedTensor
 from repro_torch.models.spec import TensorSpec, map_specs
 
@@ -40,8 +44,8 @@ def _attn_template(cfg: ArchConfig) -> dict:
     return t
 
 
-def _mlp_template(cfg: ArchConfig) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_template(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     t = {
         "ln": TensorSpec((d,), (None,), init="ones"),
         "wu": TensorSpec((d, f), ("embed", "ff"), quant_axis=0),
@@ -50,6 +54,88 @@ def _mlp_template(cfg: ArchConfig) -> dict:
     if cfg.activation == "swiglu":
         t["wg"] = TensorSpec((d, f), ("embed", "ff"), quant_axis=0)
     return t
+
+
+def _moe_template(cfg: ArchConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    t = {
+        "ln": TensorSpec((d,), (None,), init="ones"),
+        "router": TensorSpec((d, e), ("embed", None), dtype=torch.float32),
+        "w_up": TensorSpec((e, d, f), ("experts", "embed", "ff"),
+                           quant_axis=1),
+        "w_down": TensorSpec((e, f, d), ("experts", "ff", "embed"),
+                             quant_axis=1),
+    }
+    if cfg.activation == "swiglu":
+        t["w_gate"] = TensorSpec((e, d, f), ("experts", "embed", "ff"),
+                                 quant_axis=1)
+    if cfg.dense_residual:
+        t["dense"] = _mlp_template(cfg, cfg.expert_d_ff)
+    return t
+
+
+def _mamba2_template(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    d_inner, n_heads, conv_dim = S.mamba2_dims(cfg)
+    n = cfg.ssm_state
+    return {
+        "ln": TensorSpec((d,), (None,), init="ones"),
+        "in_proj": TensorSpec(
+            (d, 2 * d_inner + 2 * n + n_heads), ("embed", "ssm_inner"),
+            quant_axis=0,
+        ),
+        "conv_w": TensorSpec((conv_dim, cfg.ssm_conv), ("ssm_inner", None)),
+        "dt_bias": TensorSpec((n_heads,), (None,), init="zeros"),
+        "a_log": TensorSpec((n_heads,), (None,), init="decay"),
+        "d_skip": TensorSpec((n_heads,), (None,), init="ones"),
+        "out_norm": TensorSpec((d_inner,), ("ssm_inner",), init="ones"),
+        "out_proj": TensorSpec((d_inner, d), ("ssm_inner", "embed"),
+                               quant_axis=0),
+    }
+
+
+def _rwkv6_template(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    h, hd = S.rwkv6_dims(cfg)
+    r = cfg.lora_rank
+    tm = {
+        "ln": TensorSpec((d,), (None,), init="ones"),
+        "w0": TensorSpec((d,), (None,), init="decay"),
+        "u_bonus": TensorSpec((h, hd), (None, None), init="zeros"),
+        "gn": TensorSpec((hd,), (None,), init="ones"),
+        "wr": TensorSpec((d, d), ("embed", "rwkv_att"), quant_axis=0),
+        "wk": TensorSpec((d, d), ("embed", "rwkv_att"), quant_axis=0),
+        "wv": TensorSpec((d, d), ("embed", "rwkv_att"), quant_axis=0),
+        "wg": TensorSpec((d, d), ("embed", "rwkv_att"), quant_axis=0),
+        "wo": TensorSpec((d, d), ("rwkv_att", "embed"), quant_axis=0),
+        "w_lora_a": TensorSpec((d, r), ("embed", None)),
+        "w_lora_b": TensorSpec((r, d), (None, "rwkv_att")),
+    }
+    for nm in ("r", "k", "v", "w", "g"):
+        tm[f"mu_{nm}"] = TensorSpec((d,), (None,), init="zeros")
+        tm[f"lora_{nm}_a"] = TensorSpec((d, r // 2), ("embed", None))
+        tm[f"lora_{nm}_b"] = TensorSpec((r // 2, d), (None, "rwkv_att"))
+    cm = {
+        "ln": TensorSpec((d,), (None,), init="ones"),
+        "mu_ck": TensorSpec((d,), (None,), init="zeros"),
+        "mu_cr": TensorSpec((d,), (None,), init="zeros"),
+        "wk_c": TensorSpec((d, cfg.d_ff), ("embed", "ff"), quant_axis=0),
+        "wv_c": TensorSpec((cfg.d_ff, d), ("ff", "embed"), quant_axis=0),
+        "wr_c": TensorSpec((d, d), ("embed", "rwkv_att"), quant_axis=0),
+    }
+    return {"tm": tm, "cm": cm}
+
+
+def _layer_template(cfg: ArchConfig) -> dict:
+    if cfg.family == "dense":
+        return {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
+    if cfg.family == "moe":
+        return {"attn": _attn_template(cfg), "moe": _moe_template(cfg)}
+    if cfg.family == "rwkv6":
+        return _rwkv6_template(cfg)
+    if cfg.family == "hybrid_mamba2":
+        return {"m": _mamba2_template(cfg)}
+    raise ValueError(cfg.family)
 
 
 def _stack_spec(sp: TensorSpec, n: int) -> TensorSpec:
@@ -62,10 +148,11 @@ def _stack_spec(sp: TensorSpec, n: int) -> TensorSpec:
 
 def build_template(cfg: ArchConfig, stacked: bool = False) -> dict:
     """Parameter template: embed, final norm, optional untied LM head and
-    one {'attn', 'mlp'} dict per layer; ``stacked=True`` makes ``blocks``
-    ONE such dict whose leaves carry a leading layer axis (the
-    reference's layout when ``scan_layers`` is set, its default for
-    full-width configs)."""
+    one layer dict per layer (``_layer_template``); the hybrid adds the
+    attention and MLP blocks its attention layers share. ``stacked=True``
+    makes ``blocks`` ONE layer dict whose leaves carry a leading layer
+    axis (the reference's layout when ``scan_layers`` is set, its
+    default for full-width configs)."""
     d, v = cfg.d_model, cfg.vocab
     t: dict = {
         "embed": TensorSpec((v, d), ("vocab", "embed"), init_scale=0.01),
@@ -74,14 +161,13 @@ def build_template(cfg: ArchConfig, stacked: bool = False) -> dict:
     if not cfg.tie_embeddings:
         t["lm_head"] = TensorSpec((d, v), ("embed", "vocab"), quant_axis=0)
     if stacked:
-        layer = {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
         t["blocks"] = map_specs(lambda sp: _stack_spec(sp, cfg.n_layers),
-                                layer)
+                                _layer_template(cfg))
     else:
-        t["blocks"] = [
-            {"attn": _attn_template(cfg), "mlp": _mlp_template(cfg)}
-            for _ in range(cfg.n_layers)
-        ]
+        t["blocks"] = [_layer_template(cfg) for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid_mamba2":
+        t["shared_attn"] = _attn_template(cfg)
+        t["shared_mlp"] = _mlp_template(cfg)
     return t
 
 
@@ -124,7 +210,8 @@ def unstack_blocks(stacked: dict, n_layers: int) -> list:
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_bits: Optional[int] = None,
                      device="cuda") -> dict:
-    """Decode-time KV state as a global page pool per layer.
+    """Decode-time KV state as a global page pool per layer (attention
+    families only: recurrent state is O(1) a slot, nothing to page).
 
     ``kv_bits=8`` pools hold SAMD-packed words (four int8 lanes along
     head_dim, as int32) plus an f32 scale per (token, kv-head). Which
@@ -133,6 +220,10 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
     the scratch page that takes dropped writes (see
     ``layers._paged_write``); page tables never name it.
     """
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(
+            f"paged KV cache needs an attention family, got {cfg.family}"
+        )
     shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
 
     def kv_pool():
@@ -157,12 +248,21 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
 def init_cache(cfg: ArchConfig, batch: int, length: int,
                dtype=torch.bfloat16, kv_bits: Optional[int] = None,
                device="cuda") -> dict:
-    """Per-slot KV ring for every layer: ``k``/``v`` [batch, length, Hkv,
-    dh] in ``dtype`` and ``pos`` [batch, length] int32, -1 where nothing
-    was written; ``kv_bits=8`` holds int8 ``k``/``v`` with f32
-    ``k_scale``/``v_scale`` [batch, length, Hkv]. The engine's
-    ``kv_mode="ring"`` cache at [max_batch, max_len], and the speculative
-    draft's tick-local ring at [B, K]."""
+    """Decode-time state of every layer, ``{"layers": [...]}``.
+
+    Attention layers get a per-slot KV ring: ``k``/``v`` [batch, length,
+    Hkv, dh] in ``dtype`` and ``pos`` [batch, length] int32, -1 where
+    nothing was written; ``kv_bits=8`` holds int8 ``k``/``v`` with f32
+    ``k_scale``/``v_scale`` [batch, length, Hkv]. (The engine's
+    ``kv_mode="ring"`` cache at [max_batch, max_len], and the
+    speculative draft's tick-local ring at [B, K].)
+
+    rwkv6 layers hold f32 ``wkv`` [batch, H, hd, hd], ``shift_tm`` and
+    ``shift_cm`` [batch, d_model]; hybrid_mamba2 layers ``conv`` [batch,
+    conv_dim, ssm_conv - 1] in ``dtype`` and f32 ``ssd`` [batch, H,
+    ssm_head_dim, ssm_state], plus an ``attn_kv`` ring on the layers
+    after which the shared attention runs (``(i + 1) % attn_every ==
+    0``)."""
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
 
     def ring():
@@ -181,7 +281,31 @@ def init_cache(cfg: ArchConfig, batch: int, length: int,
                 "v": torch.zeros(shape, dtype=dtype, device=device),
                 "pos": pos}
 
-    return {"layers": [ring() for _ in range(cfg.n_layers)]}
+    def f32(*dims):
+        return torch.zeros(dims, dtype=torch.float32, device=device)
+
+    if cfg.family in ("dense", "moe"):
+        return {"layers": [ring() for _ in range(cfg.n_layers)]}
+    if cfg.family == "rwkv6":
+        h, hd = S.rwkv6_dims(cfg)
+        return {"layers": [
+            {"wkv": f32(batch, h, hd, hd),
+             "shift_tm": f32(batch, cfg.d_model),
+             "shift_cm": f32(batch, cfg.d_model)}
+            for _ in range(cfg.n_layers)]}
+    if cfg.family == "hybrid_mamba2":
+        _, n_heads, conv_dim = S.mamba2_dims(cfg)
+        layers = []
+        for i in range(cfg.n_layers):
+            st = {"conv": torch.zeros((batch, conv_dim, cfg.ssm_conv - 1),
+                                      dtype=dtype, device=device),
+                  "ssd": f32(batch, n_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state)}
+            if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+                st["attn_kv"] = ring()
+            layers.append(st)
+        return {"layers": layers}
+    raise ValueError(cfg.family)
 
 
 def copy_paged_page(cache: dict, src: int, dst: int) -> None:
@@ -192,21 +316,37 @@ def copy_paged_page(cache: dict, src: int, dst: int) -> None:
             pool[dst].copy_(pool[src])
 
 
+def _store(state: Optional[dict], new: dict) -> None:
+    """Write a recurrent block's new state into its cache IN PLACE (the
+    engine holds views of the cache's rows)."""
+    if state is not None:
+        for name, t in new.items():
+            state[name].copy_(t)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
             page_table: Optional[torch.Tensor] = None,
             page_size: int = 0, paged_attn: str = "gather",
-            cache_index: int = 0, pool_cache: Optional[dict] = None,
-            pool_bound: Optional[torch.Tensor] = None):
-    """Returns logits [B, S, vocab] bf16.
+            cache_index=0, pool_cache: Optional[dict] = None,
+            pool_bound: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            return_aux: bool = False):
+    """Returns logits [B, S(+P), vocab] bf16; with ``return_aux`` also the
+    MoE load-balance loss summed over the layers (f32 scalar, 0 for the
+    other families), the reference's third output.
 
     ``params["blocks"]`` is a list of per-layer dicts (``unstack_blocks``
-    turns the stacked layout into one).
+    turns the stacked layout into one). ``prefix_embeds`` [B, P, D] are
+    put before the tokens' embeddings (the frontend stub of the audio and
+    vision archs); positions then count them.
 
-    With ``cache`` (``init_cache``) and no ``page_table``, each layer's
-    K/V ring is written IN PLACE at ``cache_index`` (an int, or a [B]
-    tensor of per-row offsets) and attention reads the whole ring.
+    With ``cache`` (``init_cache``) and no ``page_table``, each attention
+    layer's K/V ring is written IN PLACE at ``cache_index`` (an int, or a
+    [B] tensor of per-row offsets) and attention reads the whole ring;
+    recurrent layers read their state and write the new one IN PLACE
+    (the hybrid's shared attention uses its layer's ``attn_kv`` ring).
 
     With ``cache`` (``init_paged_cache``) and ``page_table`` [B, n_pp],
     every token's K/V is written into the pools IN PLACE at its logical
@@ -223,22 +363,52 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     """
     b, s = tokens.shape
     x = params["embed"][tokens].to(torch.bfloat16)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         layer_cache = cache["layers"][i] if cache is not None else None
-        pool_layer = (pool_cache["layers"][i] if pool_cache is not None
-                      else None)
-        x = x + L.attention_block(
-            p["attn"], x, positions, cfg, kv_cache=layer_cache,
-            page_table=page_table, page_size=page_size,
-            paged_attn=paged_attn, cache_index=cache_index,
-            pool_kv=pool_layer, pool_bound=pool_bound,
-        )
-        x = x + L.mlp_block(p["mlp"], x, cfg)
+        if cfg.family in ("dense", "moe"):
+            pool_layer = (pool_cache["layers"][i] if pool_cache is not None
+                          else None)
+            x = x + L.attention_block(
+                p["attn"], x, positions, cfg, kv_cache=layer_cache,
+                page_table=page_table, page_size=page_size,
+                paged_attn=paged_attn, cache_index=cache_index,
+                pool_kv=pool_layer, pool_bound=pool_bound,
+            )
+            if cfg.family == "dense":
+                x = x + L.mlp_block(p["mlp"], x, cfg)
+            else:
+                mo, aux = L.moe_block(p["moe"], x, cfg,
+                                      group_tokens=cfg.moe_group_tokens)
+                x = x + mo
+                aux_total = aux_total + aux
+        elif cfg.family == "rwkv6":
+            delta, st_tm = S.rwkv6_time_mix(p["tm"], x, cfg, layer_cache)
+            x = x + delta
+            delta, st_cm = S.rwkv6_channel_mix(p["cm"], x, cfg, layer_cache)
+            x = x + delta
+            _store(layer_cache, {**st_tm, **st_cm})
+        elif cfg.family == "hybrid_mamba2":
+            delta, st = S.mamba2_block(p["m"], x, cfg, layer_cache)
+            x = x + delta
+            _store(layer_cache, st)
+            if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+                kv_c = (layer_cache["attn_kv"] if layer_cache is not None
+                        else None)
+                x = x + L.attention_block(
+                    params["shared_attn"], x, positions, cfg,
+                    kv_cache=kv_c, cache_index=cache_index)
+                x = x + L.mlp_block(params["shared_mlp"], x, cfg)
+        else:
+            raise ValueError(cfg.family)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"].to(x.dtype).t())
     else:
         logits = L.apply_linear(params["lm_head"], x)
-    return logits
+    return (logits, aux_total) if return_aux else logits

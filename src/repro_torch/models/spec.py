@@ -7,6 +7,7 @@ materializes random parameters from a ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -24,7 +25,7 @@ class TensorSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"  # 'normal' | 'zeros' | 'ones'
+    init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'decay'
     init_scale: float = 0.02
     quant_axis: Optional[int] = None
 
@@ -45,13 +46,19 @@ def map_specs(fn, tree):
 def init_from_spec(spec_tree, generator: torch.Generator,
                    device="cuda"):
     """Random parameters for a TensorSpec tree: N(0, init_scale) drawn in
-    f32 from ``generator`` (which must live on ``device``), then cast."""
+    f32 from ``generator`` (which must live on ``device``), then cast;
+    'decay' leaves (SSM / RWKV gates) are the reference's slow-decay
+    ramp, linspace(-6, -1) over the leaf in row-major order."""
 
     def make(sp: TensorSpec) -> torch.Tensor:
         if sp.init == "zeros":
             return torch.zeros(sp.shape, dtype=sp.dtype, device=device)
         if sp.init == "ones":
             return torch.ones(sp.shape, dtype=sp.dtype, device=device)
+        if sp.init == "decay":
+            v = torch.linspace(-6.0, -1.0, math.prod(sp.shape),
+                               dtype=torch.float32, device=device)
+            return v.reshape(sp.shape).to(sp.dtype)
         w = torch.randn(sp.shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (w * sp.init_scale).to(sp.dtype)

@@ -1,6 +1,6 @@
 """Batched serving engine: paged KV pool + one ragged decode step per tick.
 
-The PyTorch port of ``repro/serving/engine.py`` (dense family). The
+The PyTorch port of ``repro/serving/engine.py``, all four families. The
 scheduling contract is the reference's:
 
   * fixed ``max_batch`` decode slots; host-side slot state (position,
@@ -57,8 +57,13 @@ Modes, resolved as the reference resolves them:
     max_len] instead of the page pool: batched prefill writes a fresh
     ring and replaces the admitted slots' rows, the ragged decode step
     writes each row at its own column. No pages, no prefix sharing, no
-    speculative decoding. ``"auto"`` (default) is ``"paged"`` under
-    ragged decode and ``"ring"`` under per-row decode;
+    speculative decoding. ``"auto"`` (default) is ``"paged"`` for the
+    attention families (dense, moe) under ragged decode, else ``"ring"``.
+    The recurrent families (rwkv6, hybrid_mamba2) always run the ring:
+    their state is O(1) a slot, each admission is one ``_prefill_one``
+    that resets its slot's row, and the ragged step advances every
+    slot's state each tick (the hybrid's shared attention keeps a ring
+    on its attention layers);
   * ``decode_mode="per_row"`` is the reference's equivalence baseline:
     one exact-length prefill (``_prefill_one``) and one ``forward`` per
     active slot per tick (``_decode_rows_reference``) over the ring,
@@ -236,6 +241,25 @@ class PageAllocator:
         self.reserved = 0
 
 
+def _leaves(tree) -> list:
+    """The tensors of a nested dict / list cache, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _row_views(tree, i: int):
+    """The cache with every tensor cut to row ``i`` (views: writes land
+    in the engine's cache)."""
+    if isinstance(tree, dict):
+        return {k: _row_views(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_row_views(v, i) for v in tree]
+    return tree[i:i + 1]
+
+
 def _bucket_len(max_prompt: int, max_len: int) -> int:
     """Smallest power-of-two prefill bucket >= the longest admitted prompt
     (floor 8, capped at the cache length)."""
@@ -282,8 +306,11 @@ class ServingEngine:
         if max_queue is not None and max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         # the page pool needs the batched admission path; the per-row
-        # reference path slices per-slot cache rows, so it runs the ring
-        paged_capable = decode_mode == "ragged"
+        # reference path slices per-slot cache rows and recurrent families
+        # have O(1) state: both run the ring
+        paged_capable = (
+            decode_mode == "ragged" and cfg.family in ("dense", "moe")
+        )
         if kv_mode == "auto":
             kv_mode = "paged" if paged_capable else "ring"
         if kv_mode not in ("paged", "ring"):
@@ -344,8 +371,9 @@ class ServingEngine:
                 cfg, max_len, page_size, self.speculative, paged_attn)
         if verify:
             self._verify_lane_safety()
-        # batched prefill needs position-masked padding: the ragged path
-        # (paged or ring); the per-row path prefills one slot at a time
+        # batched prefill needs position-masked padding: attention
+        # families on the ragged path (paged or ring); recurrent families
+        # and the per-row path prefill one slot at a time
         self._batched_prefill = paged_capable
         if kv_mode == "paged":
             self._decode_step = steps_mod.make_paged_ragged_serve_step(
@@ -439,10 +467,10 @@ class ServingEngine:
                           kv_bits=self._kv_bits, device=self.device)
 
     def kv_cache_bytes(self) -> int:
-        """Resident bytes of the KV cache (the page pool, scratch page
-        included, or the ring)."""
+        """Resident bytes of the KV cache and recurrent state (the page
+        pool, scratch page included, or the ring and states)."""
         return sum(t.numel() * t.element_size()
-                   for layer in self.cache["layers"] for t in layer.values())
+                   for t in _leaves(self.cache))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -731,18 +759,16 @@ class ServingEngine:
             self._finish_admit(slot, req, effs[row], int(tok0[row]))
 
     def _prefill_one(self, slot: int, req: Request):
-        """Exact-length prefill of one request into its slot's ring row
-        (the per-row path). The row is reset first, so the previous
-        occupant's K/V and positions cannot leak."""
+        """Exact-length prefill of one request into its slot's row of the
+        ring and recurrent state (recurrent families and the per-row
+        path). The row is reset first, so the previous occupant's state,
+        K/V and positions cannot leak."""
         eff = self._eff_prompt(req)
         fresh = init_cache(self.cfg, 1, self.max_len, kv_bits=self._kv_bits,
                            device=self.device)
-        row_cache = {"layers": []}
-        for ring, new in zip(self.cache["layers"], fresh["layers"]):
-            for name, c in ring.items():
-                c[slot:slot + 1] = new[name]
-            row_cache["layers"].append(
-                {name: c[slot:slot + 1] for name, c in ring.items()})
+        for c, new in zip(_leaves(self.cache), _leaves(fresh)):
+            c[slot:slot + 1] = new
+        row_cache = _row_views(self.cache, slot)
         tokens = self._to_device(eff.astype(np.int64))[None]
         logits = forward(self.params, tokens, self.cfg, cache=row_cache,
                          cache_index=0)
@@ -1037,9 +1063,7 @@ class ServingEngine:
         for i in range(self.max_batch):
             if not self.active[i]:
                 continue
-            row_cache = {"layers": [
-                {name: c[i:i + 1] for name, c in ring.items()}
-                for ring in self.cache["layers"]]}
+            row_cache = _row_views(self.cache, i)
             pos = int(self.slot_pos[i])
             lg = forward(
                 self.params,

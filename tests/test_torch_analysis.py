@@ -13,6 +13,7 @@ certification sweep's VGG-B entries and its entries over the committed
 shared-memory estimators are pure Python and checked here against the
 H100 limit at every plan the port's launchers can take.
 """
+import itertools
 import pathlib
 
 import pytest
@@ -181,9 +182,14 @@ def test_check_conv_plan_equals_the_reference(fmt, taps, channels, in_bits,
     assert got == want
 
 
+ALL_ARCHS = ["arctic-480b", "llava-next-mistral-7b", "musicgen-medium",
+             "nemotron-4-15b", "olmoe-1b-7b", "qwen1.5-0.5b", "qwen1.5-32b",
+             "qwen3-14b", "rwkv6-3b", "zamba2-7b"]
+
+
 @pytest.mark.parametrize("respect", [False, True])
 @pytest.mark.parametrize("qe", [None, False, True])
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_model_reduction_depths_equal_the_reference(arch, qe, respect):
     wide = dict(d_model=256, head_dim=64, d_ff=512, vocab=256)
     jt = j_build_template(j_smoke_config(arch).scaled(**wide))
@@ -194,6 +200,31 @@ def test_model_reduction_depths_equal_the_reference(arch, qe, respect):
                                               respect_min_size=respect)
     got = contracts.model_reduction_depths(tt, tq, respect_min_size=respect)
     assert got == want and got
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_full_width_depths_and_verdicts_equal_the_reference(arch):
+    """Every arch's full-width templates (the experts' 2048 and 1024,
+    rwkv6's wv_c 8960, nemotron's wd 24576, zamba2's out_proj 7168 among
+    them): the same reduction depths, and the same lane-safety verdict
+    at each depth for 2, 4 and 8 bits, with and without 8-bit
+    activations."""
+    from repro.configs import get_arch as j_get_arch
+    from repro_torch.configs.archs import get_arch
+
+    jt = j_build_template(j_get_arch(arch), stacked=False)
+    tt = build_template(get_arch(arch))
+    want = j_contracts.model_reduction_depths(jt, respect_min_size=True)
+    got = contracts.model_reduction_depths(tt, respect_min_size=True)
+    assert got == want
+    new_depths = {"olmoe-1b-7b": {2048, 1024}, "rwkv6-3b": {8960},
+                  "nemotron-4-15b": {24576}, "zamba2-7b": {7168}}
+    assert new_depths.get(arch, set()) <= set(got)
+    for bits, act_bits, k in itertools.product((2, 4, 8), (None, 8), got):
+        assert _outcome(lambda: contracts.check_matmul_config(
+            QuantConfig(bits=bits, act_bits=act_bits), k)) == _outcome(
+            lambda: j_contracts.check_matmul_config(
+                JQuantConfig(bits=bits, act_bits=act_bits), k))
 
 
 def test_certify_vggb_entries_equal_the_reference():

@@ -2,9 +2,9 @@
 price.
 
 ``repro_torch.launch.analytic_costs.cell_cost`` copies the reference's
-expressions for the dense family in the same order, and the server's
+expressions for all four families in the same order, and the server's
 refusals compare its floats, so every field must be EQUAL (``==``, not
-close) to the reference's: for the port's two dense archs at full width
+close) to the reference's: for the reference's ten archs at full width
 and at smoke width, decode, prefill and train shapes, weights at bf16 and
 2, 4 and 8 bits, KV at bf16 and 8 bits. ``price_request`` likewise over a
 grid of prompt length, ``max_tokens``, page size, ``max_len`` and
@@ -29,7 +29,9 @@ from repro_torch.launch.analytic_costs import cell_cost  # noqa: E402
 from repro_torch.quant.config import QuantConfig  # noqa: E402
 from repro_torch.serving import price_request  # noqa: E402
 
-ARCHS = ("qwen1.5-0.5b", "qwen3-14b")
+ARCHS = ("arctic-480b", "llava-next-mistral-7b", "musicgen-medium",
+         "nemotron-4-15b", "olmoe-1b-7b", "qwen1.5-0.5b", "qwen1.5-32b",
+         "qwen3-14b", "rwkv6-3b", "zamba2-7b")
 SHAPES = [("decode_32k", 32768, 128, "decode"),
           ("admission", 37, 1, "decode"),
           ("prefill_32k", 32768, 32, "prefill"),
@@ -47,6 +49,16 @@ def _fields(c):
     return dataclasses.asdict(c), c.hbm_bytes
 
 
+def _outcome(fn):
+    """``fn()``'s fields, or the name of the exception it raised (the
+    reference divides by an attention-free arch's head_dim 0 under 8-bit
+    KV; the port must fail alike)."""
+    try:
+        return _fields(fn())
+    except ArithmeticError as e:
+        return type(e).__name__
+
+
 @pytest.mark.parametrize("kind", ["decode", "prefill", "train"])
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
@@ -59,9 +71,11 @@ def test_cell_cost_equals_reference(arch, smoke, kind):
     shapes = [s for s in SHAPES if s[3] == kind]
     for shape, bits, kv_bits in itertools.product(shapes, (None, 2, 4, 8),
                                                   (None, 8)):
-        got = cell_cost(cfg, ShapeConfig(*shape), bits, kv_bits)
-        want = j_cell_cost(jcfg, JShapeConfig(*shape), bits, kv_bits)
-        assert _fields(got) == _fields(want), (shape, bits, kv_bits)
+        got = _outcome(lambda: cell_cost(cfg, ShapeConfig(*shape), bits,
+                                         kv_bits))
+        want = _outcome(lambda: j_cell_cost(jcfg, JShapeConfig(*shape),
+                                            bits, kv_bits))
+        assert got == want, (shape, bits, kv_bits)
 
 
 QUANTS = [
@@ -83,7 +97,9 @@ def test_price_request_equals_reference(arch, quant):
     for prompt_len, max_tokens, page_size, max_len, cap in grid:
         kw = dict(page_size=page_size, max_len=max_len,
                   capacity_tokens_per_s=cap)
-        got = price_request(cfg, q, prompt_len, max_tokens, **kw)
-        want = j_price_request(jcfg, jq, prompt_len, max_tokens, **kw)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want), (
-            prompt_len, max_tokens, page_size, max_len, cap)
+        got = _outcome(lambda: price_request(cfg, q, prompt_len,
+                                             max_tokens, **kw))
+        want = _outcome(lambda: j_price_request(jcfg, jq, prompt_len,
+                                                max_tokens, **kw))
+        assert got == want, (prompt_len, max_tokens, page_size, max_len,
+                             cap)

@@ -1053,3 +1053,62 @@ def test_engine_modes_on_card_run_no_plain_version(cuda, monkeypatch, mode):
     assert sum(got[i] == fused[i] for i in got) * 2 >= len(got)
     if "decode_mode" in mode:
         assert eng.stats["per_row_forward_calls"] > 0
+
+
+# -- the other families (MoE, RWKV6, hybrid Mamba2) --------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("hkv,g", [(16, 1), (8, 6)])
+def test_paged_attention_kernel_at_olmoe_and_nemotron(cuda, hkv, g, packed):
+    """Decode at olmoe-1b-7b's attention shape (16 heads, G = 1, dh =
+    128: one query row a stream) and nemotron-4-15b's (8 kv-heads, G =
+    6, dh = 128)."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + g + packed)
+    args, kw = _paged_inputs(cuda, gen, 8, hkv, g, 128, 16, 32, packed)
+    got = ops.paged_decode_attention(*args, **kw)
+    _close(got, pa.paged_decode_attention_plain(*args, **kw))
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-3b", "zamba2-7b"])
+def test_family_engines_on_card_run_no_plain_version(cuda, monkeypatch,
+                                                     arch):
+    """Smoke olmoe (paged), rwkv6 and zamba2 (ring) engines on the card,
+    4-bit weights, every plain version patched to raise: each serves
+    every request in full (more requests than slots) through the split-K
+    and tile launchers, olmoe's decode attention through the paged
+    kernel, the recurrent families with no attention kernel and no
+    per-row forward."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = smoke_config(arch).scaled(d_model=256, head_dim=64, d_ff=512,
+                                    vocab=256)
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((mm, "samd_matmul_plain"),
+                      (pa, "paged_decode_attention_plain"),
+                      (pa, "paged_verify_attention_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    eng = ServingEngine(cfg, None, quant=QuantConfig(bits=4), max_batch=2,
+                        max_len=96, page_size=8, device=cuda)
+    for i in range(5):
+        eng.submit(Request(rid=i, prompt=(torch.arange(34 + 5 * i) * 7 + i)
+                           .numpy() % 256, max_tokens=10))
+    ops.reset_launch_counts()
+    done = eng.run_to_completion()
+    counts = ops.launch_counts()
+    want = {"samd_matmul_splitk_launch", "samd_matmul_tile_launch"}
+    if cfg.family == "moe":
+        want.add("paged_decode_attention_launch")
+        assert eng.kv_mode == "paged"
+    else:
+        assert eng.kv_mode == "ring"
+        assert eng.stats["per_row_forward_calls"] == 0
+    assert {fn for fn, c in counts.items() if c} == want, counts
+    assert len(done) == 5
+    assert all(r.error is None and not r.truncated
+               and len(r.generated) == 10 for r in done)

@@ -64,3 +64,35 @@ def test_port_imports_without_jax_repro_or_nvcc(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20  # every port module imported
+
+
+_FAMILIES_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.modules["benchmarks"] = None
+import torch
+from repro_torch.configs.archs import ARCHS, smoke_config
+from repro_torch.models import ssm
+from repro_torch.models.model import build_template, forward
+from repro_torch.models.spec import init_from_spec
+for name in ("rwkv6-3b", "zamba2-7b", "olmoe-1b-7b"):
+    cfg = smoke_config(name)
+    params = init_from_spec(build_template(cfg), torch.Generator(),
+                            device="cpu")
+    out = forward(params, torch.zeros((1, 3), dtype=torch.long), cfg)
+    assert out.shape == (1, 3, cfg.vocab)
+print(ssm.__name__, len(ARCHS))
+"""
+
+
+def test_recurrent_and_moe_modules_need_no_jax_or_repro():
+    """``models/ssm.py`` and the families' forward import and run with
+    ``jax``, ``repro`` and ``benchmarks`` blocked."""
+    assert (PORT / "models" / "ssm.py") in _sources()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run([sys.executable, "-c", _FAMILIES_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["repro_torch.models.ssm", "10"]
