@@ -196,6 +196,33 @@ Phases, any failure exits non-zero:
       takes (CUDA events around every ``layers.materialize`` call inside
       the engine's decode steps).
 
+  (j) training: (j1) full-width qwen1.5-0.5b (24 layers, d 1024, vocab
+      151936, tied embeddings; seeded random weights on the card) takes
+      ``TRAIN_STEPS`` = 20 AdamW steps of SyntheticLM (seed 0) at batch 8,
+      seq 256, lr 3e-4 after a 5-step warm-up, through
+      ``launch.steps.make_train_step``: every loss and gradient norm
+      finite, the mean of the last 5 losses below the mean of the first
+      5, no SAMD kernel launched (counts reset before); it prints the
+      median step time (synchronized, steps 2-20), tokens/s, peak memory
+      and the model-FLOPs share ``mfu`` (``analytic_costs.cell_cost``
+      flops over the step time over 989 TFLOP/s); (j2) the same model cut
+      to 2 layers: one step's loss, gradient norm and every gradient on
+      the card against the port on the CPU (the CPU tests' tolerances),
+      the embedding gradient bit-identical over two runs, then on the
+      card remat against no remat and grad_accum=2 against one batch
+      (the reference's tolerances); (j3) ``launch.train.main`` at full
+      width saved at step 3 and resumed to step 6 against 6 uninterrupted
+      steps (within 5e-2; the difference printed), its checkpoint's leaf
+      names and dtypes the reference's stacked layout; (j4) the 20-step
+      weights quantized 4-bit and served by ``ServingEngine`` (fused
+      attention, bf16 KV) on 8 of (c)'s requests: untruncated, exactly
+      the split-K, tile and decode-attention launchers, greedy tokens
+      equal to the same engine's run under ``plain_versions()`` or
+      parting at a near-tie (``check_greedy``); the 8- and 4-bit argmax
+      agreement with the bf16 model on a held-out batch printed; (j5)
+      tests/test_system.py's config trained 40 steps on the card: 8- and
+      4-bit argmax agreement >= 0.9 and >= 0.6, forward on the card.
+
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -311,6 +338,25 @@ SLO_TOKEN_BUDGET = 30.0
 FRONT_DOOR_TIMEOUT_S = 240
 # (i) zamba2-7b's depth in its run: its published 81 layers, no cut
 ZAMBA2_LAYERS = 81
+# (j) training full-width qwen1.5-0.5b: steps of SyntheticLM(seed 0) at
+# batch x seq, AdamW at peak lr after a linear warm-up (stated as
+# tests/test_system.py states its own): the reference's default --lr.
+# From these seeded weights the 20-step loss falls at 1e-4 and 3e-4 and
+# rises at 1e-3 and above (tools/train_runs.py --sweep; PERF.md)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 256
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+# (j2) the card against the CPU: the full-width model cut to this many
+# layers, one step on batch x seq; the CPU tests' tolerances
+# (tests/test_torch_train.py): loss 1e-4 and gradient norm 5e-3
+# relative, every gradient leaf within 2^-4 of its largest |value|
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 1e-4, 5e-3, 2.0 ** -4
+# (j4) the trained model served 4-bit: the first n of (c)'s requests
+TRAIN_SERVE_REQUESTS = 8
+# (j5) tests/test_system.py's config, trained this many steps on the card
+SYSTEM_CONFIG = dict(n_layers=2, d_model=64, vocab=128, n_heads=4,
+                     n_kv_heads=4, head_dim=16, d_ff=128)
+SYSTEM_STEPS = 40
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -716,10 +762,11 @@ def time_speculative_steps(eng):
 
 
 def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
-          max_tokens=MAX_TOKENS, on_engine=None, **engine_kw):
+          max_tokens=MAX_TOKENS, on_engine=None, params=None, **engine_kw):
     """Serve the first ``n`` requests of the workload (prompts drawn from
     the arch's vocabulary), ``max_tokens`` each, with
-    ``ServingEngine(arch, **engine_kw)`` (default QWEN15_05B); the
+    ``ServingEngine(arch, params, **engine_kw)`` (default QWEN15_05B;
+    weights drawn from ``seed`` when ``params`` is None); the
     launchers in ``expect`` must launch and no other. ``on_engine(eng)``
     runs after the engine is built, before it serves (instrumentation).
     Returns (engine, summary dict, launch counts)."""
@@ -730,7 +777,7 @@ def serve(label, dev, expect, seed=0, arch=None, n=N_REQUESTS,
     cfg = arch or QWEN15_05B
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = ServingEngine(cfg, None, seed=seed, device=dev, **SERVE,
+    eng = ServingEngine(cfg, params, seed=seed, device=dev, **SERVE,
                         **engine_kw)
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t0
@@ -2988,6 +3035,339 @@ def family_entries(cfg, counts, head_n, errs, t, attn_err, prefill_m):
     return out
 
 
+# -- (j) training ------------------------------------------------------------
+
+def to_device(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def train_batch(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_run(cfg, params, dev, steps, batch, seq, lr, warmup, seed=0):
+    """``steps`` steps of ``launch.steps.make_train_step`` on
+    SyntheticLM(seed) batches. Returns (params, [(loss, grad_norm, lr, ms
+    of the step, synchronized)])."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw_init
+
+    run = RunConfig(arch=cfg, shape=ShapeConfig("train", seq, batch,
+                                                "train"),
+                    learning_rate=lr, lr_warmup=warmup)
+    step = steps_mod.make_train_step(cfg, run)
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=seed)
+    opt = adamw_init(params)
+    rows = []
+    for _ in range(steps):
+        b = train_batch(next(data), dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append((m["loss"].item(), m["grad_norm"].item(),
+                     m["lr"].item(), ms))
+    return params, rows
+
+
+def seeded_params(cfg, dev, seed=0):
+    from repro_torch.models.model import build_template
+    from repro_torch.models.spec import init_from_spec
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_from_spec(build_template(cfg), gen, device=dev)
+
+
+def grads_on(cfg, params, batch, dev, **run_kw):
+    """(raw loss, gradients) of the port's loss on ``dev``."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+
+    b, s = batch["tokens"].shape
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", s, b, "train"),
+                    **run_kw)
+    return steps_mod.value_and_grad(steps_mod.make_loss_fn(cfg, run),
+                                    to_device(params, dev),
+                                    train_batch(batch, dev))
+
+
+def leaf_errs(got, want, tol):
+    """{leaf: max |got - want| / max |want|}, raising if one is over
+    ``tol``."""
+    from repro_torch.tree import named_leaves
+
+    errs = {}
+    for (name, g), (_, w) in zip(named_leaves(got), named_leaves(want)):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = max(w.abs().max().item(), 1e-30)
+        errs[name] = (g - w).abs().max().item() / scale
+        if not torch.isfinite(g).all() or errs[name] > tol:
+            raise AssertionError(f"gradient {name}: {errs[name]:.4g} of its "
+                                 f"scale, limit {tol}")
+    return errs
+
+
+def check_training_numerics(dev):
+    """(j2) the full-width model cut to TRAIN_CHECK_LAYERS layers: one
+    step's loss, gradient norm and every gradient on the card against the
+    port on the CPU (the CPU tests' tolerances); the embedding gradient
+    bit-identical over two runs on the card; remat against no remat and
+    grad_accum=2 against one batch on the card (the reference's
+    tolerances)."""
+    from repro_torch.configs.archs import QWEN15_05B
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import named_leaves
+
+    cfg = QWEN15_05B.scaled(n_layers=TRAIN_CHECK_LAYERS)
+    log(f"  (j2) {cfg.name} at full width (d {cfg.d_model}, vocab "
+        f"{cfg.vocab}), depth cut {QWEN15_05B.n_layers} -> {cfg.n_layers} "
+        f"layers; batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}")
+    params = seeded_params(cfg, "cpu", seed=1)
+    batch = next(SyntheticLM(cfg.vocab, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                             seed=1))
+    loss_c, g_c = grads_on(cfg, params, batch, "cpu")
+    loss_d, g_d = grads_on(cfg, params, batch, dev)
+    loss_d2, g_d2 = grads_on(cfg, params, batch, dev)
+    emb = [dict(named_leaves(g))["embed"] for g in (g_d, g_d2)]
+    if not torch.equal(emb[0], emb[1]) or loss_d.item() != loss_d2.item():
+        raise AssertionError("the embedding gradient (or the loss) differs "
+                             "between two runs on the card")
+    gn_c, gn_d = global_norm(g_c).item(), global_norm(g_d).item()
+    loss_rel = abs(loss_d.item() - loss_c.item()) / abs(loss_c.item())
+    gn_rel = abs(gn_d - gn_c) / gn_c
+    if loss_rel > TRAIN_LOSS_TOL or gn_rel > TRAIN_GNORM_TOL:
+        raise AssertionError(f"card vs CPU: loss {loss_rel:.3g}, grad norm "
+                             f"{gn_rel:.3g} relative")
+    errs = leaf_errs(g_d, g_c, TRAIN_GRAD_TOL)
+    worst = max(errs, key=errs.get)
+    out = dict(loss_cpu=loss_c.item(), loss_card=loss_d.item(),
+               loss_rel=loss_rel, grad_norm_cpu=gn_c, grad_norm_card=gn_d,
+               grad_norm_rel=gn_rel, worst_grad_leaf=worst,
+               worst_grad_rel=errs[worst], embed_grad_deterministic=True)
+    # remat against no remat, on the card
+    loss_r, g_r = grads_on(cfg, params, batch, dev, remat="block")
+    if abs(loss_r.item() - loss_d.item()) >= 1e-4:
+        raise AssertionError("remat changed the loss")
+    remat_err = 0.0
+    for (name, a), (_, b) in zip(named_leaves(g_d), named_leaves(g_r)):
+        err = (a.float() - b.float()).abs().max().item()
+        if err > max(1e-3, 2.0 ** -7 * a.float().abs().max().item()):
+            raise AssertionError(f"remat gradient {name}: {err:.4g}")
+        remat_err = max(remat_err, err)
+    out.update(remat_max_grad_err=remat_err,
+               remat_bit_identical=all(torch.equal(a, b) for (_, a), (_, b)
+                                       in zip(named_leaves(g_d),
+                                              named_leaves(g_r))))
+    # grad_accum=2 against one batch of twice the rows, one step
+    out.update(accum_against_full_batch(cfg, params, dev))
+    log("  (j2) card vs CPU, remat, accumulation: " + json.dumps(out))
+    return out
+
+
+def accum_against_full_batch(cfg, params, dev):
+    """One train step with grad_accum=2 against grad_accum=1 on the same
+    batch, on the card: loss within 2e-2 relative, every parameter within
+    5e-2 (tests/test_models.py's bounds)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import named_leaves
+
+    b, s = 2 * TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ
+    batch = train_batch(next(SyntheticLM(cfg.vocab, s, b, seed=2)), dev)
+    p = to_device(params, dev)
+    outs = []
+    for accum in (1, 2):
+        run = RunConfig(arch=cfg, shape=ShapeConfig("t", s, b, "train"),
+                        grad_accum=accum, learning_rate=TRAIN_LR,
+                        lr_warmup=TRAIN_WARMUP)
+        outs.append(steps_mod.make_train_step(cfg, run)(
+            p, adamw_init(p), batch))
+    (p1, _, m1), (p2, _, m2) = outs
+    l1, l2 = m1["loss"].item(), m2["loss"].item()
+    diff = max((a.float() - c.float()).abs().max().item()
+               for (_, a), (_, c) in zip(named_leaves(p1), named_leaves(p2)))
+    if abs(l1 - l2) >= 2e-2 * abs(l1) or diff >= 5e-2:
+        raise AssertionError(f"grad_accum=2: loss {l2} vs {l1}, params "
+                             f"{diff:.4g} apart")
+    return dict(accum_loss=l2, full_batch_loss=l1, accum_max_param_diff=diff)
+
+
+def check_checkpoint_resume(dev):
+    """(j3) ``launch.train.main`` at full width: a run saved at step 3 and
+    resumed to step 6 against 6 uninterrupted steps (the reference
+    test's 5e-2 on every parameter; the maximum difference printed), and
+    the checkpoint's leaf names and dtypes against the reference's
+    layout (stacked blocks: qwen1.5-0.5b has ``scan_layers``)."""
+    import shutil
+
+    from repro_torch.configs.archs import QWEN15_05B
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import build_template
+    from repro_torch.tree import named_leaves
+
+    ck = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ck, ignore_errors=True)
+    args = ["--arch", QWEN15_05B.name, "--batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+    t0 = time.perf_counter()
+    full = train_main(args + ["--steps", "6"], device=dev)
+    train_main(args + ["--steps", "3", "--checkpoint-dir", str(ck),
+                       "--checkpoint-every", "3"], device=dev)
+    with open(ck / "ckpt_00000003" / "manifest.json") as f:
+        manifest = json.load(f)
+    resumed = train_main(args + ["--steps", "6", "--checkpoint-dir",
+                                 str(ck), "--resume"], device=dev)
+    wall = time.perf_counter() - t0
+    diff = max((a.float() - b.float()).abs().max().item()
+               for (_, a), (_, b) in zip(named_leaves(full),
+                                         named_leaves(resumed)))
+    identical = all(torch.equal(a, b) for (_, a), (_, b) in
+                    zip(named_leaves(full), named_leaves(resumed)))
+    if diff >= 5e-2:
+        raise AssertionError(f"resumed run {diff:.4g} from the full run")
+    tmpl = named_leaves(build_template(QWEN15_05B, stacked=True))
+    names = ["opt/0"] + [f"opt/{i}/{n}" for i in (1, 2) for n, _ in tmpl]
+    names += [f"params/{n}" for n, _ in tmpl]
+    want_dtypes = {f"params/{n}": "bfloat16" for n, sp in tmpl
+                   if sp.dtype == torch.bfloat16}
+    if (sorted(manifest["leaves"]) != sorted(names)
+            or manifest["dtypes"] != want_dtypes or manifest["step"] != 3):
+        raise AssertionError("checkpoint leaves or dtypes are not the "
+                             "reference's")
+    n_bytes = sum(p.stat().st_size for p in (ck / "ckpt_00000003").iterdir())
+    shutil.rmtree(ck, ignore_errors=True)
+    out = dict(resume_max_param_diff=diff, resume_bit_identical=identical,
+               checkpoint_leaves=len(names), checkpoint_gib=round(
+                   n_bytes / 2**30, 3), wall_s=round(wall, 1))
+    log("  (j3) checkpoint at step 3, resume to 6: " + json.dumps(out))
+    return out
+
+
+def argmax_agreement(cfg, params, dev, tokens):
+    """{bits: share of positions whose argmax the SAMD-packed model
+    (``quantize_params``) gives as the bf16 model does} for 8 and 4 bits,
+    forward on ``dev``, and the launches the packed forwards made."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_template, forward
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.quant.config import QuantConfig
+
+    out = {}
+    before = ops.launch_counts()
+    with torch.no_grad():
+        pred = forward(params, tokens, cfg).float().argmax(-1)
+        for bits in (8, 4):
+            q = quantize_params(params, build_template(cfg),
+                                QuantConfig(bits=bits))
+            pred_q = forward(q, tokens, cfg).float().argmax(-1)
+            out[bits] = (pred == pred_q).float().mean().item()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+
+
+def run_training(dev, card):
+    """Phase (j): train full-width qwen1.5-0.5b, check the step's
+    numerics, checkpoint and resume, then serve what was trained
+    through the kernels. Returns (summary, the trained-serve run's
+    launch counts)."""
+    from repro_torch.configs.archs import QWEN15_05B, smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.analytic_costs import cell_cost
+    from repro_torch.quant.config import QuantConfig
+
+    cfg = QWEN15_05B
+    t_phase = time.perf_counter()
+    params = seeded_params(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    params, rows = train_run(cfg, params, dev, TRAIN_STEPS, TRAIN_BATCH,
+                             TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [r[0] for r in rows]
+    if not all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows):
+        raise AssertionError(f"non-finite loss or grad norm: {rows}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"a SAMD kernel launched in training: {counts}")
+    # the first step builds cuBLAS handles and workspaces: the median
+    # is over the steady steps
+    ms = float(np.median([r[3] for r in rows[1:]]))
+    flops = cell_cost(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train")).flops
+    train = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+        step_ms_median=ms, first_step_ms=rows[0][3],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        model_flops_per_step=flops, mfu=flops / (ms / 1e3) / BF16_OPS_PER_S,
+        peak_mem_gib=round(peak / 2**30, 3), losses=losses,
+        grad_norms=[r[1] for r in rows], lrs=[r[2] for r in rows],
+        first5_mean=float(np.mean(losses[:5])),
+        last5_mean=float(np.mean(losses[-5:])), launches=counts,
+        card=card)
+    log("  (j1) train: " + json.dumps(train))
+    numerics = check_training_numerics(dev)
+    resume = check_checkpoint_resume(dev)
+
+    # (j4) serve the 20-step weights 4-bit through the kernels
+    eng, served, s_counts = serve(
+        "(j4) trained 4-bit, bf16 KV", dev, {SPLITK, TILE, DECODE},
+        n=TRAIN_SERVE_REQUESTS, params=params, quant=QuantConfig(bits=4))
+    kern_done = list(eng.finished)
+    eng.reset()
+    with plain_versions():
+        for r in workload(1, TRAIN_SERVE_REQUESTS, MAX_TOKENS, cfg.vocab):
+            eng.submit(r)
+        plain_done = eng.run_to_completion()
+    if any(r.error or r.truncated or len(r.generated) != MAX_TOKENS
+           for r in plain_done):
+        raise AssertionError("(j4) the plain run fell short")
+    identical = check_greedy(eng, plain_done, dev, reqs=kern_done,
+                             against="the plain versions' run on the card")
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    data.seek(TRAIN_STEPS)
+    held_out = train_batch(next(data), dev)["tokens"][:2]
+    full_agree, full_launches = argmax_agreement(cfg, params, dev, held_out)
+    del eng
+    # (j5) tests/test_system.py's config trained 40 steps on the card
+    small = smoke_config("qwen1.5-0.5b").scaled(**SYSTEM_CONFIG)
+    sp, srows = train_run(small, seeded_params(small, dev), dev,
+                          SYSTEM_STEPS, 8, 64, 1e-3, 10)
+    data = SyntheticLM(small.vocab, 64, 8, seed=0)
+    data.seek(SYSTEM_STEPS)
+    agree, small_launches = argmax_agreement(
+        small, sp, dev, train_batch(next(data), dev)["tokens"])
+    if agree[8] < 0.9 or agree[4] < 0.6:
+        raise AssertionError(f"argmax agreement {agree}")
+    out = dict(train=train, numerics=numerics, resume=resume,
+               serve=dict(served, greedy_identical=identical,
+                          requests=TRAIN_SERVE_REQUESTS),
+               full_width_argmax_agreement=full_agree,
+               full_width_agreement_launches=full_launches,
+               system_config_argmax_agreement=agree,
+               system_config_launches=small_launches,
+               system_config_losses=[r[0] for r in srows],
+               phase_s=round(time.perf_counter() - t_phase, 1))
+    log("  (j) " + json.dumps({k: v for k, v in out.items()
+                               if k not in ("train", "numerics", "resume",
+                                            "serve")}))
+    return out, s_counts
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -3286,12 +3666,39 @@ def main() -> int:
     families, entries = run_families(dev, timer, gen, launch_log)
     kernels += entries
     analysis = check_analysis(dev, launch_log)
+
+    log(f"(j) training full-width qwen1.5-0.5b, then serving it (card: "
+        f"{card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    training, counts = run_training(dev, card)
+    # (j4) serves the trained weights with (c)'s engine shapes: its
+    # launchers' numbers are (b)'s and (d)'s for (c)'s bf16 KV run, their
+    # launches (j4)'s own
+    kernels.append(kernel_entry(
+        f"samd_matmul split-K (trained model, M={SERVE['max_batch']})",
+        MM_SOURCE, "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
+        err_mm[4, "temporary", True, SERVE["max_batch"]], decode_t["bf16"],
+        "(j4): full-width qwen1.5-0.5b trained 20 steps, 4-bit, bf16 KV; "
+        "numbers of (c)'s bf16 KV decode row"))
+    kernels.append(kernel_entry(
+        "samd_matmul tile (trained model prefill)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts[TILE],
+        err_mm[4, "temporary", True, 1024], prefill_t,
+        "(j4): prefills of 8 x bucket rows; numbers of the M=1024 row"))
+    kernels.append(kernel_entry(
+        "paged_decode_attention (trained model, bf16 KV)", PA_SOURCE,
+        "src/repro/kernels/paged_attention.py:294", counts[DECODE],
+        err_pa["bf16", 1], attn_t["bf16"],
+        "(j4): launches of the trained model's serving run; numbers of "
+        "(c)'s bf16 KV decode row"))
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
     log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
     log("qwen3-14b: " + json.dumps(dict(q3_sum, group_scales=g_sum)))
     log("analysis: " + json.dumps(analysis))
     log("families: " + json.dumps(families))
+    log("training: " + json.dumps(training))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,9 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+from repro_torch.quant.config import QuantConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +82,23 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Everything a training run needs besides the architecture (the
+    reference's fields and defaults). ``remat`` is 'none' or 'block'
+    (recompute each block in the backward pass)."""
+
+    arch: ArchConfig
+    shape: ShapeConfig
+    quant: QuantConfig = QuantConfig(enabled=False)
+    learning_rate: float = 3e-4
+    lr_warmup: int = 100
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    remat: str = "none"
+    checkpoint_every: int = 100
+    checkpoint_dir: Optional[str] = None
+    seed: int = 0

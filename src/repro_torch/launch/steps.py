@@ -1,6 +1,8 @@
-"""Serving steps: ragged decode over the paged KV pool or the per-slot
+"""Step functions (the port of ``repro/launch/steps.py``): the training
+step (loss, gradients with optional accumulation and remat, AdamW), and
+the serving steps: ragged decode over the paged KV pool or the per-slot
 ring, batched prefill into either, self-speculative draft + verify, and
-in-step sampling (the serving subset of ``repro/launch/steps.py``).
+in-step sampling.
 
 Each step samples on the device, so only the next token ids (and, for a
 speculative tick, the accept lengths) cross to the host. Caches are
@@ -10,8 +12,84 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models.model import forward, init_cache
+from repro_torch.optim import adamw_update, cosine_warmup
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in f32."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, targets.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - tgt)
+
+
+def make_loss_fn(cfg: ArchConfig, run: RunConfig):
+    """loss_fn(params, batch) -> (loss + 0.01 x the MoE aux loss, the raw
+    loss). ``batch``: ``tokens``, ``targets`` [B, S] and optionally
+    ``prefix_embeds`` [B, P, D], whose positions carry no LM target."""
+
+    def loss_fn(params, batch):
+        prefix = batch.get("prefix_embeds")
+        logits, aux = forward(params, batch["tokens"], cfg,
+                              prefix_embeds=prefix, return_aux=True,
+                              remat=(run.remat == "block"))
+        if prefix is not None:  # frontend stub tokens carry no LM targets
+            logits = logits[:, prefix.shape[1]:]
+        loss = lm_loss(logits, batch["targets"])
+        return loss + 0.01 * aux, loss
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """(raw loss, gradients in the parameters' structure) of ``loss_fn``'s
+    first output. A parameter the loss does not reach gets zeros, as
+    under ``jax.grad``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    total, raw = loss_fn(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return raw.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, run: RunConfig):
+    """train_step(params, opt_state, batch) -> (new params, new AdamW
+    state, {"loss", "lr", "grad_norm"}), out of place.
+
+    ``run.grad_accum`` > 1 splits the batch into that many micro-batches
+    (rows ``i*mb:(i+1)*mb``), sums their gradients in f32 buffers and
+    divides at the end, as the reference's scan does; the loss is the
+    mean of the micro-batches' raw losses."""
+    loss_fn = make_loss_fn(cfg, run)
+
+    def train_step(params, opt_state, batch):
+        lr = cosine_warmup(opt_state.step, peak_lr=run.learning_rate,
+                           warmup=run.lr_warmup)
+        if run.grad_accum > 1:
+            mb = batch["tokens"].shape[0] // run.grad_accum
+            gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
+                    for p in tree_leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=lr.device)
+            for i in range(run.grad_accum):
+                sl = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                raw, g = value_and_grad(loss_fn, params, sl)
+                gsum = [a + b for a, b in zip(gsum, tree_leaves(g))]
+                loss = loss + raw / run.grad_accum
+            grads = tree_unflatten(params,
+                                   [g / run.grad_accum for g in gsum])
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        new_params, new_opt, metrics = adamw_update(
+            grads, opt_state, params, lr,
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+        return new_params, new_opt, {"loss": loss, "lr": lr, **metrics}
+
+    return train_step
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,

@@ -15,6 +15,12 @@ into the port's list of per-layer dicts.
 
 Packed words move through ``ndarray.view(np.int32)``, so they stay bit
 identical; bf16 arrays go through f32, which is exact.
+
+The way back: ``reference_layout`` stacks the port's list of layers into
+the reference's layout (when ``cfg.scan_layers``) for any tree of the
+parameters' structure (parameters, gradients, AdamW moments), and
+``params_to_numpy`` makes that numpy. Checkpoints are written in that
+layout, so the two packages name their leaves alike.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.models.layers import QuantizedTensor
 from repro_torch.quant.config import QuantConfig
+from repro_torch.tree import tree_map
 
 
 def quant_config(ref_cfg) -> QuantConfig:
@@ -54,13 +61,8 @@ def params_from_numpy(tree, device="cuda"):
     which raises ValueError on a packed leaf quantized from a stacked
     weight, as the reference's scan does when it serves one."""
     if isinstance(tree, dict):
-        out = {k: params_from_numpy(v, device) for k, v in tree.items()}
-        if isinstance(out.get("blocks"), dict):
-            from repro_torch.models.model import unstack_blocks
-
-            out["blocks"] = unstack_blocks(
-                out["blocks"], _first_leaf(out["blocks"]).shape[0])
-        return out
+        return port_layout(
+            {k: params_from_numpy(v, device) for k, v in tree.items()})
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
     if hasattr(tree, "packed") and hasattr(tree, "cfg"):
@@ -70,6 +72,49 @@ def params_from_numpy(tree, device="cuda"):
             tuple(tree.orig_shape), int(tree.axis), quant_config(tree.cfg),
         )
     return tensor_from_numpy(tree, device)
+
+
+def reference_layout(tree, cfg):
+    """A tree of the port's parameter structure in the reference's layout:
+    with ``cfg.scan_layers`` its ``blocks`` list becomes ONE layer dict
+    whose leaves stack the layers along a new leading axis (a copy);
+    otherwise the tree itself. Dtypes and devices are kept."""
+    if not (cfg.scan_layers and isinstance(tree, dict)
+            and isinstance(tree.get("blocks"), list)):
+        return tree
+    return {**tree, "blocks": tree_map(lambda *xs: torch.stack(xs),
+                                       *tree["blocks"])}
+
+
+def port_layout(tree):
+    """The inverse of ``reference_layout``: stacked ``blocks`` become one
+    dict per layer (views of the stacked leaves)."""
+    if isinstance(tree, dict) and isinstance(tree.get("blocks"), dict):
+        from repro_torch.models.model import unstack_blocks
+
+        return {**tree, "blocks": unstack_blocks(
+            tree["blocks"], _first_leaf(tree["blocks"]).shape[0])}
+    return tree
+
+
+def params_to_numpy(tree, cfg):
+    """``reference_layout(tree, cfg)`` as numpy arrays (on the host).
+    numpy has no bf16 of its own: bf16 leaves come out in the bf16 dtype
+    that ``ml_dtypes`` registers with numpy (present wherever the
+    reference runs), or raise TypeError where it is not registered (the
+    checkpoint store writes bf16 through torch and needs none)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype != torch.bfloat16:
+            return t.numpy()
+        try:
+            bf16 = np.dtype("bfloat16")
+        except TypeError as e:
+            raise TypeError("a bf16 numpy array needs ml_dtypes") from e
+        return t.view(torch.int16).numpy().view(bf16)
+
+    return tree_map(leaf, reference_layout(tree, cfg))
 
 
 def _first_leaf(tree):

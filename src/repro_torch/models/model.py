@@ -14,9 +14,12 @@ which ``unstack_blocks`` turns into the port's (``convert`` does so).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -324,6 +327,42 @@ def _store(state: Optional[dict], new: dict) -> None:
             state[name].copy_(t)
 
 
+class _EmbedGather(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each row's gradient in f32
+    (``embedding_dense_backward`` of the f32 cotangent: on CUDA a sorted,
+    deterministic reduction, not bf16 atomics in no fixed order), then
+    rounds it to the table's dtype once, as the reference's gather-then-
+    cast does."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        gw = torch.ops.aten.embedding_dense_backward(
+            g.to(torch.float32), tokens, ctx.rows, -1, False)
+        return gw.to(ctx.dtype), None
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if table.requires_grad and torch.is_grad_enabled():
+        return _EmbedGather.apply(table, tokens)
+    return table[tokens]
+
+
+def _remat(fn, remat: bool):
+    """``fn`` recomputed in the backward pass instead of keeping its
+    activations (the reference's ``jax.checkpoint``) when ``remat``."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
@@ -332,7 +371,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             cache_index=0, pool_cache: Optional[dict] = None,
             pool_bound: Optional[torch.Tensor] = None,
             prefix_embeds: Optional[torch.Tensor] = None,
-            return_aux: bool = False):
+            return_aux: bool = False, remat: bool = False):
     """Returns logits [B, S(+P), vocab] bf16; with ``return_aux`` also the
     MoE load-balance loss summed over the layers (f32 scalar, 0 for the
     other families), the reference's third output.
@@ -360,50 +399,75 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     then the draft's ring (``init_cache``), written IN PLACE at column
     ``cache_index``, while the paged pools in ``pool_cache`` are read
     only, at positions <= ``pool_bound`` [B].
+
+    ``remat`` (training: no cache) recomputes each block in the backward
+    pass (``torch.utils.checkpoint``): the dense and MoE layers, the
+    RWKV6 layer, the Mamba2 mixer and the hybrid's shared attention +
+    MLP, as the reference's ``jax.checkpoint`` wraps them. The recompute
+    runs the same operations on the same inputs, so the MoE router
+    picks the same experts.
     """
+    if remat and (cache is not None or pool_cache is not None):
+        raise ValueError("remat is for training: it takes no cache")
     b, s = tokens.shape
-    x = params["embed"][tokens].to(torch.bfloat16)
+    x = _embed(params["embed"], tokens).to(torch.bfloat16)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def attn_layer(p, x, layer_cache, pool_layer):
+        x = x + L.attention_block(
+            p["attn"], x, positions, cfg, kv_cache=layer_cache,
+            page_table=page_table, page_size=page_size,
+            paged_attn=paged_attn, cache_index=cache_index,
+            pool_kv=pool_layer, pool_bound=pool_bound,
+        )
+        if cfg.family == "dense":
+            return x + L.mlp_block(p["mlp"], x, cfg), None
+        mo, aux = L.moe_block(p["moe"], x, cfg,
+                              group_tokens=cfg.moe_group_tokens)
+        return x + mo, aux
+
+    def rwkv_layer(p, x, layer_cache):
+        delta, st_tm = S.rwkv6_time_mix(p["tm"], x, cfg, layer_cache)
+        x = x + delta
+        delta, st_cm = S.rwkv6_channel_mix(p["cm"], x, cfg, layer_cache)
+        return x + delta, {**st_tm, **st_cm}
+
+    def mamba_layer(p, x, layer_cache):
+        delta, st = S.mamba2_block(p["m"], x, cfg, layer_cache)
+        return x + delta, st
+
+    def shared_layer(p_attn, p_mlp, x, kv_c):
+        x = x + L.attention_block(p_attn, x, positions, cfg, kv_cache=kv_c,
+                                  cache_index=cache_index)
+        return x + L.mlp_block(p_mlp, x, cfg)
+
+    attn_fn, rwkv_fn, mamba_fn, shared_fn = (
+        _remat(fn, remat)
+        for fn in (attn_layer, rwkv_layer, mamba_layer, shared_layer))
     for i, p in enumerate(params["blocks"]):
         layer_cache = cache["layers"][i] if cache is not None else None
         if cfg.family in ("dense", "moe"):
             pool_layer = (pool_cache["layers"][i] if pool_cache is not None
                           else None)
-            x = x + L.attention_block(
-                p["attn"], x, positions, cfg, kv_cache=layer_cache,
-                page_table=page_table, page_size=page_size,
-                paged_attn=paged_attn, cache_index=cache_index,
-                pool_kv=pool_layer, pool_bound=pool_bound,
-            )
-            if cfg.family == "dense":
-                x = x + L.mlp_block(p["mlp"], x, cfg)
-            else:
-                mo, aux = L.moe_block(p["moe"], x, cfg,
-                                      group_tokens=cfg.moe_group_tokens)
-                x = x + mo
+            x, aux = attn_fn(p, x, layer_cache, pool_layer)
+            if cfg.family == "moe":
                 aux_total = aux_total + aux
         elif cfg.family == "rwkv6":
-            delta, st_tm = S.rwkv6_time_mix(p["tm"], x, cfg, layer_cache)
-            x = x + delta
-            delta, st_cm = S.rwkv6_channel_mix(p["cm"], x, cfg, layer_cache)
-            x = x + delta
-            _store(layer_cache, {**st_tm, **st_cm})
+            x, st = rwkv_fn(p, x, layer_cache)
+            _store(layer_cache, st)
         elif cfg.family == "hybrid_mamba2":
-            delta, st = S.mamba2_block(p["m"], x, cfg, layer_cache)
-            x = x + delta
+            x, st = mamba_fn(p, x, layer_cache)
             _store(layer_cache, st)
             if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
                 kv_c = (layer_cache["attn_kv"] if layer_cache is not None
                         else None)
-                x = x + L.attention_block(
-                    params["shared_attn"], x, positions, cfg,
-                    kv_cache=kv_c, cache_index=cache_index)
-                x = x + L.mlp_block(params["shared_mlp"], x, cfg)
+                x = shared_fn(params["shared_attn"], params["shared_mlp"],
+                              x, kv_c)
         else:
             raise ValueError(cfg.family)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)

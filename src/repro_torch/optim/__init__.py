@@ -1,0 +1,5 @@
+"""AdamW and the learning-rate schedule (the port of ``repro.optim``)."""
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+from repro_torch.optim.schedule import cosine_warmup
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_warmup"]

@@ -1,4 +1,5 @@
-"""Symmetric per-channel quantization."""
+"""Symmetric per-channel quantization and straight-through-estimator
+fake-quant."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +33,37 @@ def quantize_symmetric(w: torch.Tensor, bits: int, axis: int = 0,
     scale = torch.clamp(amax, min=1e-8) / qmax
     q = torch.clamp(torch.round(wf / scale), -qmax, qmax).to(torch.int32)
     return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+class _RoundSTE(torch.autograd.Function):
+    """round() forward, identity backward (straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant(w: torch.Tensor, bits: int, axis: int = 0) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (QAT), so a
+    network is trained for the precision it is deployed at (paper §7).
+    The scale's amax is detached, as the reference's ``stop_gradient``:
+    the gradient reaches ``w`` through the rounding only. The clip is a
+    maximum then a minimum, as ``jnp.clip`` is: where the code sits on
+    the bound (the amax element of each channel) each passes half the
+    gradient, and beyond it none."""
+    qmax = (1 << (bits - 1)) - 1
+    amax = torch.amax(torch.abs(w), dim=axis, keepdim=True).detach()
+    scale = torch.clamp(amax, min=1e-8) / qmax
+    q = _RoundSTE.apply(w / scale)
+    lo = torch.full((), -qmax, dtype=q.dtype, device=q.device)
+    q = torch.minimum(torch.maximum(lo, q), -lo)
+    return q * scale

@@ -96,3 +96,45 @@ def test_recurrent_and_moe_modules_need_no_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["repro_torch.models.ssm", "10"]
+
+
+_TRAINING_PROBE = r"""
+import os, sys, tempfile
+for name in ("jax", "repro", "benchmarks", "ml_dtypes", "triton"):
+    sys.modules[name] = None    # any import of these now raises
+import repro_torch.optim, repro_torch.data, repro_torch.checkpoint
+import repro_torch.distributed.compression
+from repro_torch.launch.train import main
+d = tempfile.mkdtemp()
+args = ["--arch", "qwen1.5-0.5b", "--smoke", "--batch", "2", "--seq-len",
+        "16", "--log-every", "1", "--checkpoint-dir", d]
+main(args + ["--steps", "2", "--grad-compression", "4"], device="cpu")
+main(args + ["--steps", "3", "--resume"], device="cpu")
+print(sorted(os.listdir(d))[-1])
+"""
+
+
+def test_training_modules_need_no_jax_repro_ml_dtypes_or_triton():
+    """``optim``, ``data``, ``checkpoint``, ``distributed.compression``
+    and ``launch.train`` import, and train, checkpoint bf16 weights and
+    resume on the CPU, with ``jax``, ``repro``, ``benchmarks``,
+    ``ml_dtypes`` and ``triton`` blocked."""
+    for sub in ("optim", "data", "checkpoint", "distributed"):
+        assert (PORT / sub / "__init__.py") in _sources()
+    assert (PORT / "launch" / "train.py") in _sources()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run([sys.executable, "-c", _TRAINING_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = res.stdout
+    assert "resumed from step 2" in out and "training done" in out
+    assert out.split()[-1] == "ckpt_00000003"
+
+
+def test_port_sources_import_no_ml_dtypes_or_triton():
+    """No port source imports ``ml_dtypes`` (the machine with the card
+    has none) or ``triton`` (no kernel of the port is a Triton one)."""
+    blocked = re.compile(r"^\s*(import|from)\s+(ml_dtypes|triton)\b", re.M)
+    for path in _sources():
+        assert not blocked.findall(path.read_text()), path
