@@ -223,6 +223,41 @@ Phases, any failure exits non-zero:
       tests/test_system.py's config trained 40 steps on the card: 8- and
       4-bit argmax agreement >= 0.9 and >= 0.6, forward on the card.
 
+  (k) the paper's 64-bit SAMD words (int64 tensors holding the uint64
+      bits), eager PyTorch on the card, no SAMD kernel launched: (k1)
+      ``core.conv.samd_conv_full`` at ``word_bits=64`` on (f)'s five
+      signals (2/3/4-bit signed and 4-bit unsigned, 3 taps, as int64)
+      bit-identical to (f)'s 32-bit ``samd_conv1d`` kernel outputs and to
+      the convolution in float64; (k2) ``samd_conv_multichannel`` at 64
+      bits on 64 channels x 50,176 positions (conv1_2's input), 2/3/4
+      bits signed, lanes from ``overflow.plan_for_kernel``, against the
+      exact channel sum, printing whether a 32-bit word holds the plan
+      (not at 3 and 4 bits), and ``samd_conv_grouped(word_bits=32)``
+      giving the same sum; (k3) ``conv_by_scale`` (2^20 values, 4 and 8
+      bits), ``samd_conv_grouped`` (64 x 16,384 values) and the codegen
+      add / sub / mul (2^20 words; 3, 4, 8 bits; both spacer regimes) at
+      64 bits against their 32-bit results. The first ``CPU_SLICE``
+      positions (or words) of each 64-bit result, and (k1)'s chunk
+      products as (hi, lo) words, are recomputed on the CPU and must be
+      bit-identical (wrapping int64 multiplies and shifts on the card).
+      Each case prints its device ms at 64- and 32-bit words (CUDA
+      events, in turns); nothing is gated on them.
+  (l) distribution on one card: an NCCL process group of world size 1
+      and a (1, 1) ("data", "model") ``DeviceMesh``; (l1) ``DIST_STEPS`` =
+      2 AdamW steps of (j1)'s full-width qwen1.5-0.5b (its seeded weights
+      and first SyntheticLM batches) with parameters, moments and batch as
+      DTensors placed by ``distributed.sharding`` (``param_pspecs``,
+      ``data_pspec``, ``placements``), held to the plain step's loss,
+      gradient norm and parameters within (j2)'s tolerances, every leaf
+      on its placements after each step; bit-identity and the step times
+      printed beside the plain ones, and ``CommDebugMode``'s collective
+      counts (one card moves no bytes between ranks; the ranks are held
+      on the CPU by tests/test_torch_distributed.py); (l2)
+      ``compressed_psum`` at 8 and 4 bits on 2^24 floats against
+      dequantize(quantize(x)); (l3) the sharded weights saved and
+      restored with ``load_checkpoint(..., shardings=)``, bit-identical.
+      The process group is destroyed at the end of the phase.
+
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -357,6 +392,21 @@ TRAIN_SERVE_REQUESTS = 8
 SYSTEM_CONFIG = dict(n_layers=2, d_model=64, vocab=128, n_heads=4,
                      n_kv_heads=4, head_dim=16, d_ff=128)
 SYSTEM_STEPS = 40
+# (k) the 64-bit words: conv1_2's input activations as 64 channels x
+# 224 * 224 positions for samd_conv_multichannel at these bits; 2^20 words
+# (and 2^20 values) for the codegen ops, conv_by_scale and
+# samd_conv_grouped; the first CPU_SLICE positions (or words) of each
+# 64-bit result recomputed on the CPU; timed iterations of each case
+WORDS64_CHANNELS, WORDS64_POSITIONS = 64, 224 * 224
+WORDS64_BITS = (2, 3, 4)
+WORDS64_N = 1 << 20
+WORDS64_POINTWISE_BITS = (3, 4, 8)
+CPU_SLICE = 4096
+WORDS64_ITERS = 5
+# (l) distribution on one card: (j1)'s model, batch and seq, two steps; the
+# compressed all-reduce on 2^24 floats
+DIST_STEPS = 2
+PSUM_N = 1 << 24
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -2009,7 +2059,11 @@ def run_vggb(dev, gen, timer, card, old=None):
                                       if c[0] == name and c[5] == bits)
     bits1d, signed1d, dtype1d = CONV1D_ENTRY_CASE
     fused_row, chunk_row = conv1d_rows[CONV1D_ENTRY_CASE]
-    return [
+    # (k) holds the 64-bit words against these: kept in host memory so
+    # that the later phases' device peaks are their own
+    results = {case: (x.cpu(), k.cpu(), out.cpu()) for case, (x, k, _), out
+               in zip(CONV1D_CASES, signals, outs1d)}
+    return results, [
         kernel_entry(
             f"samd_conv2d (VGG-B {name}, {bits}-bit, f32)", CONV_SOURCE,
             "src/repro/kernels/samd_conv.py:192", counts[CONV2D],
@@ -3368,6 +3422,346 @@ def run_training(dev, card):
     return out, s_counts
 
 
+# -- (k) the paper's 64-bit SAMD words ---------------------------------------
+
+def conv_direct_f64(x, k):
+    """The full convolution of integer x [..., n] with k [..., taps] in
+    float64 on x's device (exact: every sum here is far below 2^53)."""
+    n, taps = x.shape[-1], k.shape[-1]
+    out = torch.zeros(x.shape[:-1] + (n + taps - 1,), dtype=torch.float64,
+                      device=x.device)
+    for j in range(taps):
+        out[..., j:j + n] += k[..., j:j + 1].double() * x.double()
+    return out
+
+
+def same_on_cpu(fn, *args):
+    """``fn`` on the card's ``args`` and on their CPU copies: every output
+    (a tensor or a tuple of them) bit-identical. Returns the card's."""
+    got = fn(*args)
+    want = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args])
+    for g, w in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{getattr(fn, '__name__', fn)}: the card "
+                                 "and the CPU differ")
+    return got
+
+
+def words_pair_ms(timer, fn64, fn32):
+    """Device ms of one call at 64-bit and at 32-bit words (CUDA events),
+    in turns 64, 32, 32, 64; each the mean of its two runs."""
+    t = {64: [], 32: []}
+    for wb in (64, 32, 32, 64):
+        t[wb].append(timer(fn64 if wb == 64 else fn32,
+                           iters=WORDS64_ITERS, warmup=1))
+    return {"ms_64": float(np.mean(t[64])), "ms_32": float(np.mean(t[32]))}
+
+
+def run_words64(dev, timer, results):
+    """Phase (k): the 64-bit words (int64 tensors holding uint64 bits) on
+    the card. (k1) samd_conv_full at word_bits=64 on (f)'s five signals
+    against (f)'s 32-bit samd_conv1d kernel outputs and a float64
+    convolution; (k2) samd_conv_multichannel at word_bits=64 on 64
+    channels x 50,176 positions with lanes from plan_for_kernel, against
+    the exact channel sum, and samd_conv_grouped at 32-bit words where a
+    32-bit word cannot hold the plan; (k3) conv_by_scale,
+    samd_conv_grouped and the codegen add / sub / mul at 64 against 32
+    bits. A slice of each 64-bit result (and of the chunk products'
+    (hi, lo) words) is recomputed on the CPU. No SAMD kernel launches."""
+    from repro_torch.core import codegen, conv, overflow, samd
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out = {"full": [], "multichannel": [], "conv_by_scale": [],
+           "grouped": [], "pointwise": []}
+    s = CPU_SLICE
+    for (bits, signed, dtype), (x, k, out32) in results.items():
+        x, k, out32 = x.to(dev).long(), k.to(dev), out32.to(dev)
+        plan64 = conv.make_plan(bits, CONV1D_TAPS, signed, word_bits=64)
+        plan32 = conv.make_plan(bits, CONV1D_TAPS, signed)
+        got = conv.samd_conv_full(x, k, plan64)
+        if not (got.dtype == torch.int32 and torch.equal(got, out32)
+                and torch.equal(got.double(), conv_direct_f64(x, k))):
+            raise AssertionError(f"(k1) {bits}-bit signed={signed}: the "
+                                 "64-bit words differ")
+        xw = conv.pack_conv_operand(x[:s], plan64)
+        kw = conv.pack_conv_kernel(k, plan64)
+        same_on_cpu(conv.chunk_products, xw, kw, plan64)
+        if not torch.equal(same_on_cpu(conv.samd_conv_full, x[:s], k,
+                                       plan64)[:s], got[:s]):
+            raise AssertionError("(k1) the CPU's slice differs")
+        out["full"].append(dict(
+            bits=bits, signed=signed, x_dtype_in_f=str(dtype)[6:],
+            lane_width=plan64.fmt.lane_width,
+            lanes_per_word_64=plan64.lanes_per_chunk,
+            lanes_per_word_32=plan32.lanes_per_chunk, values=x.numel(),
+            bit_identical_to_f_kernel=True, **words_pair_ms(
+                timer, lambda: conv.samd_conv_full(x, k, plan64),
+                lambda: conv.samd_conv_full(x, k, plan32))))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    c, n = WORDS64_CHANNELS, WORDS64_POSITIONS
+    for bits in WORDS64_BITS:
+        lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+        x = torch.randint(lo, hi + 1, (c, n), generator=gen, device=dev)
+        k = torch.randint(lo, hi + 1, (c, CONV1D_TAPS), generator=gen,
+                          device=dev)
+        kn = k.cpu().numpy()
+        plan = overflow.plan_for_kernel(kn, bits, True, bits, word_bits=64)
+        try:
+            overflow.plan_for_kernel(kn, bits, True, bits, word_bits=32)
+            fits32 = "yes"
+        except ValueError as e:
+            fits32 = f"no: {e}"
+        got = conv.samd_conv_multichannel(x, k, plan)
+        want = conv_direct_f64(x, k).sum(0)
+        grouped = conv.samd_conv_grouped(x, k, bits, word_bits=32)
+        if not (torch.equal(got.double(), want)
+                and torch.equal(grouped, got)):
+            raise AssertionError(f"(k2) {bits}-bit: the channel sum differs")
+        if not torch.equal(same_on_cpu(conv.samd_conv_multichannel,
+                                       x[:, :s], k, plan)[:s], got[:s]):
+            raise AssertionError("(k2) the CPU's slice differs")
+        t = words_pair_ms(
+            timer, lambda: conv.samd_conv_multichannel(x, k, plan),
+            lambda: conv.samd_conv_grouped(x, k, bits, word_bits=32))
+        out["multichannel"].append(dict(
+            bits=bits, channels=c, positions=n, lane_width=plan.fmt.lane_width,
+            lanes_per_word_64=plan.lanes_per_chunk, fits_32_bit_word=fits32,
+            ms_64_multichannel=t["ms_64"], ms_32_grouped=t["ms_32"]))
+    for bits in (4, 8):
+        lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+        x = torch.randint(lo, hi + 1, (WORDS64_N,), generator=gen, device=dev)
+        k = torch.randint(lo, hi + 1, (CONV1D_TAPS,), generator=gen,
+                          device=dev)
+        got = conv.conv_by_scale(x, k, bits, True, word_bits=64)
+        if not torch.equal(got, conv.conv_by_scale(x, k, bits, True)):
+            raise AssertionError(f"(k3) conv_by_scale {bits}-bit differs")
+        if not torch.equal(same_on_cpu(conv.conv_by_scale, x[:s], k, bits,
+                                       True, 64)[:s], got[:s]):
+            raise AssertionError("(k3) the CPU's slice differs")
+        out["conv_by_scale"].append(dict(bits=bits, values=WORDS64_N,
+                                         **words_pair_ms(
+            timer, lambda: conv.conv_by_scale(x, k, bits, True, word_bits=64),
+            lambda: conv.conv_by_scale(x, k, bits, True))))
+    for bits in WORDS64_BITS:
+        lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+        x = torch.randint(lo, hi + 1, (c, WORDS64_N // c), generator=gen,
+                          device=dev)
+        k = torch.randint(lo, hi + 1, (c, CONV1D_TAPS), generator=gen,
+                          device=dev)
+        got = conv.samd_conv_grouped(x, k, bits, word_bits=64)
+        if not torch.equal(got, conv.samd_conv_grouped(x, k, bits)):
+            raise AssertionError(f"(k3) samd_conv_grouped {bits}-bit differs")
+        if not torch.equal(same_on_cpu(conv.samd_conv_grouped, x[:, :s], k,
+                                       bits, 64)[:s], got[:s]):
+            raise AssertionError("(k3) the CPU's slice differs")
+        out["grouped"].append(dict(bits=bits, channels=c, values=WORDS64_N,
+                                   **words_pair_ms(
+            timer, lambda: conv.samd_conv_grouped(x, k, bits, word_bits=64),
+            lambda: conv.samd_conv_grouped(x, k, bits))))
+    for bits in WORDS64_POINTWISE_BITS:
+        for regime in ("temporary", "permanent"):
+            ops64 = codegen.generate_pointwise(bits, regime, True, 64)
+            ops32 = codegen.generate_pointwise(bits, regime, True, 32)
+            f64, f32 = ops64["add"].fmt, ops32["add"].fmt
+            nv = WORDS64_N * f64.lanes_per_word
+            lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+            a, b = (torch.randint(lo, hi + 1, (nv,), generator=gen,
+                                  device=dev) for _ in range(2))
+            w64 = samd.pack(a, f64), samd.pack(b, f64)
+            w32 = samd.pack(a, f32), samd.pack(b, f32)
+            for name in ("add", "sub", "mul"):
+                fn64, fn32 = ops64[name].fn, ops32[name].fn
+                r64 = fn64(*w64)
+                if not torch.equal(samd.unpack(r64, f64, nv),
+                                   samd.unpack(fn32(*w32), f32, nv)):
+                    raise AssertionError(f"(k3) {name} {bits}-bit {regime}: "
+                                         "64- and 32-bit lanes differ")
+                if not torch.equal(same_on_cpu(fn64, w64[0][:s],
+                                               w64[1][:s]), r64[:s]):
+                    raise AssertionError("(k3) the CPU's slice differs")
+                out["pointwise"].append(dict(
+                    op=name, bits=bits, regime=regime, words_64=WORDS64_N,
+                    lanes_per_word_64=f64.lanes_per_word,
+                    lanes_per_word_32=f32.lanes_per_word,
+                    **words_pair_ms(timer, lambda: fn64(*w64),
+                                    lambda: fn32(*w32))))
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"(k) launched a SAMD kernel: {counts}")
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    for key in ("full", "multichannel", "conv_by_scale", "grouped"):
+        log(f"  (k) {key}: " + json.dumps(out[key]))
+    log("  (k) codegen add / sub / mul, 2^20 words: " + json.dumps(
+        out["pointwise"]))
+    return out
+
+
+# -- (l) distribution on one card ---------------------------------------------
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def full_tree(tree):
+    """A tree of DTensors gathered whole (for the comparison after a
+    step, never inside one)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.full_tensor(), tree)
+
+
+def run_distributed(dev):
+    """Phase (l): an NCCL process group of world size 1 and a (1, 1)
+    ("data", "model") DeviceMesh on the card. (l1) DIST_STEPS AdamW steps
+    of (j1)'s full-width qwen1.5-0.5b (its seeded weights and SyntheticLM
+    batches) with parameters, moments and batch as DTensors placed by the
+    sharding rules, against the plain step: loss, gradient norm and every
+    parameter within (j2)'s tolerances, every leaf on its placements;
+    (l2) compressed_psum at 8 and 4 bits on 2^24 floats against
+    dequantize(quantize(x)); (l3) the sharded weights saved, and restored
+    with ``shardings=``. One card moves no bytes between ranks; the
+    collectives' counts are printed."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.archs import QWEN15_05B
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_template
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import named_leaves
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_test_mesh(1, 1, device="cuda")
+        cfg = QWEN15_05B
+        tmpl = build_template(cfg)
+        run = RunConfig(arch=cfg, shape=ShapeConfig("train", TRAIN_SEQ,
+                                                    TRAIN_BATCH, "train"),
+                        learning_rate=TRAIN_LR, lr_warmup=TRAIN_WARMUP)
+        step = steps_mod.make_train_step(cfg, run)
+        data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        batches = [train_batch(next(data), dev) for _ in range(DIST_STEPS)]
+        params = seeded_params(cfg, dev)
+        layouts = sh.placements(sh.param_pspecs(tmpl, mesh), mesh)
+        blay = sh.placements(sh.data_pspec(TRAIN_BATCH, mesh), mesh)
+        dp = sh.distribute(params, layouts)
+        ops.reset_launch_counts()
+
+        def steps_of(p, batches_):
+            o, rows = adamw_init(p), []
+            for b in batches_:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                p, o, m = step(p, o, b)
+                torch.cuda.synchronize(dev)
+                rows.append((m["loss"], m["grad_norm"],
+                             (time.perf_counter() - t0) * 1e3))
+            return p, o, rows
+
+        want_p, want_o, want_rows = steps_of(params, batches)
+        del params, want_o
+        db = [{k: sh.distribute(v, blay) for k, v in b.items()}
+              for b in batches]
+        with CommDebugMode() as comm:
+            got_p, got_o, got_rows = steps_of(dp, db)
+        del dp
+        rows = []
+        for (gl, gg, gms), (wl, wg, wms) in zip(got_rows, want_rows):
+            gl, gg = gl.full_tensor().item(), gg.full_tensor().item()
+            wl, wg = wl.item(), wg.item()
+            rows.append(dict(loss=gl, loss_plain=wl, grad_norm=gg,
+                             grad_norm_plain=wg, ms=gms, ms_plain=wms))
+            if (abs(gl - wl) > TRAIN_LOSS_TOL * abs(wl)
+                    or abs(gg - wg) > TRAIN_GNORM_TOL * wg):
+                raise AssertionError(f"(l1) loss {gl} / {wl}, grad norm "
+                                     f"{gg} / {wg}")
+        for tree in (got_p, got_o.m, got_o.v):
+            for (name, t), (_, lay) in zip(named_leaves(tree),
+                                           named_leaves(layouts)):
+                if not (isinstance(t, DTensor)
+                        and t.placements == lay.placements):
+                    raise AssertionError(f"(l1) {name} left its placements")
+        full_p = full_tree(got_p)
+        errs = leaf_errs(full_p, want_p, TRAIN_GRAD_TOL)
+        identical = all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(named_leaves(full_p), named_leaves(want_p)))
+        worst = max(errs, key=errs.get)
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"(l1) a SAMD kernel launched: {counts}")
+        collectives = {str(k).split(".")[-1]: v
+                       for k, v in comm.get_comm_counts().items()}
+        out = dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   backend=dist.get_backend(), steps=rows,
+                   worst_param_leaf=worst, worst_param_rel=errs[worst],
+                   params_bit_identical=identical,
+                   collectives=collectives,
+                   collectives_total=comm.get_total_counts())
+        log("  (l1) sharded train steps: " + json.dumps(out))
+        del full_p, want_p, got_o
+
+        gen = torch.Generator(device=dev).manual_seed(23)
+        x = torch.randn(PSUM_N, generator=gen, device=dev)
+        psum = {}
+        for bits in (8, 4):
+            if bits == 8:
+                want = comp.dequantize_int8(*comp.quantize_int8(x))
+            else:
+                q, scale = comp.quantize_int4_packed(x)
+                want = comp.dequantize_int4_packed(q, scale, PSUM_N, x.shape)
+            got = comp.compressed_psum(x, mesh["data"], bits)
+            if not torch.equal(got, want):
+                raise AssertionError(f"(l2) compressed_psum {bits}-bit")
+            psum[bits] = dict(values=PSUM_N, bit_identical=True,
+                              max_abs_quant_err=(want - x).abs().max().item())
+        log("  (l2) compressed_psum: " + json.dumps(psum))
+
+        ck = ROOT / "build" / "chip_smoke_sharded_checkpoint"
+        shutil.rmtree(ck, ignore_errors=True)
+        t0 = time.perf_counter()
+        save_checkpoint(str(ck), {"params": got_p}, step=DIST_STEPS)
+        restored, at, _ = load_checkpoint(str(ck), {"params": tmpl},
+                                          shardings={"params": layouts})
+        ck_s = time.perf_counter() - t0
+        for (name, t), (_, g), (_, lay) in zip(
+                named_leaves(restored["params"]), named_leaves(got_p),
+                named_leaves(layouts)):
+            if not (at == DIST_STEPS and t.placements == lay.placements
+                    and torch.equal(t.full_tensor(), g.full_tensor())):
+                raise AssertionError(f"(l3) {name} did not restore")
+        n_bytes = sum(f.stat().st_size for f in ck.iterdir())
+        shutil.rmtree(ck, ignore_errors=True)
+        out.update(compressed_psum=psum, checkpoint=dict(
+            leaves=len(named_leaves(tmpl)), gib=round(n_bytes / 2**30, 3),
+            save_and_restore_s=round(ck_s, 1), bit_identical=True))
+        log("  (l3) checkpoint: " + json.dumps(out["checkpoint"]))
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -3569,8 +3963,10 @@ def main() -> int:
     q3_attn = time_qwen3_attention(dev, timer, gen, old_pa)[0]
 
     log("(f) the VGG-B convolutions through samd_conv2d and samd_conv1d")
-    kernels += run_vggb(dev, gen, timer, card,
-                        OldConv(args.old_conv) if args.old_conv else None)
+    conv1d_results, entries = run_vggb(
+        dev, gen, timer, card,
+        OldConv(args.old_conv) if args.old_conv else None)
+    kernels += entries
 
     log(f"(g) the async front door over (c)'s bf16-KV engine (card: "
         f"{card})")
@@ -3692,6 +4088,14 @@ def main() -> int:
         err_pa["bf16", 1], attn_t["bf16"],
         "(j4): launches of the trained model's serving run; numbers of "
         "(c)'s bf16 KV decode row"))
+    log(f"(k) the paper's 64-bit SAMD words (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    words64 = run_words64(dev, timer, conv1d_results)
+    log(f"(l) distribution on one card: DTensor, NCCL (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed = run_distributed(dev)
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
     log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
@@ -3699,6 +4103,8 @@ def main() -> int:
     log("analysis: " + json.dumps(analysis))
     log("families: " + json.dumps(families))
     log("training: " + json.dumps(training))
+    log("64-bit words: " + json.dumps(words64))
+    log("distribution: " + json.dumps(distributed))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ tensors. numpy has no bf16 or fp8, so those leaves are stored as
 same-width unsigned views (written and read through torch, which has the
 types) with their true dtype under ``dtypes``.
 
-A tree passed to ``save_checkpoint`` holds torch tensors (any device) or
-numpy arrays; ``load_checkpoint`` gives torch tensors on ``device`` in
-the structure of ``like``. The reference's layout (stacked ``blocks``
+A tree passed to ``save_checkpoint`` holds torch tensors (any device;
+DTensors gathered and written whole by rank 0) or numpy arrays; ``load_checkpoint`` gives torch
+tensors on ``device``, or DTensors on the placements it is given, in the
+structure of ``like``. The reference's layout (stacked ``blocks``
 for a scan-over-layers config) is the caller's to make:
 ``models.convert.reference_layout``.
 
@@ -31,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.tree import named_leaves, tree_map, tree_unflatten
 
 # dtype name -> (torch dtype, the unsigned numpy view it is stored as)
@@ -46,8 +48,11 @@ _SIGNED = {np.uint16: (np.int16, torch.int16), np.uint8: (np.int8, torch.int8)}
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, Optional[str]]:
-    """(array to write, dtype name when it is stored as a view)."""
+    """(array to write, dtype name when it is stored as a view). A
+    DTensor leaf is gathered whole (``full_tensor``, a collective)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         name = _BY_TORCH.get(t.dtype)
         if name is None:
@@ -63,14 +68,31 @@ def _to_numpy(leaf) -> tuple[np.ndarray, Optional[str]]:
 
 def save_checkpoint(path: str, tree: Any, *, step: int,
                     meta: dict | None = None):
-    """Synchronous atomic checkpoint write (tmp dir + rename)."""
+    """Synchronous atomic checkpoint write (tmp dir + rename).
+
+    A tree with DTensor leaves is saved by every rank of the default
+    process group together: each gathers the leaves whole (collectives),
+    rank 0 alone writes the files, and all leave at a barrier once they
+    are in place, so ranks that share ``path`` never race on it."""
+    sharded = any(is_dtensor(leaf) for _, leaf in named_leaves(tree))
+    arrays = [(name, *_to_numpy(leaf)) for name, leaf in named_leaves(tree)]
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write(path, arrays, step, meta)
+        dist.barrier()
+    else:
+        _write(path, arrays, step, meta)
+
+
+def _write(path: str, arrays, step: int, meta: dict | None):
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     names, dtypes = [], {}
-    for name, leaf in named_leaves(tree):
-        arr, dname = _to_numpy(leaf)
+    for name, arr, dname in arrays:
         if dname is not None:
             dtypes[name] = dname
         np.save(os.path.join(tmp, name.replace("/", "__") + ".npy"), arr)
@@ -84,10 +106,15 @@ def save_checkpoint(path: str, tree: Any, *, step: int,
     os.rename(tmp, path)
 
 
-def load_checkpoint(path: str, like: Any, device="cpu"):
+def load_checkpoint(path: str, like: Any, device="cpu",
+                    shardings: Any | None = None):
     """Restore into the structure of ``like`` (only its structure and
     leaf names are read). Returns (tree of tensors on ``device``, step,
-    meta)."""
+    meta). With ``shardings``, a tree of ``distributed.sharding.Layout``
+    of ``like``'s structure (``sharding.placements(...)``), each leaf is
+    instead distributed onto its mesh and placements, whatever layout it
+    was saved from: the elastic-resize path. Every rank of the meshes
+    calls it."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dtypes = manifest.get("dtypes", {})
@@ -99,9 +126,13 @@ def load_checkpoint(path: str, like: Any, device="cpu"):
             t = torch.from_numpy(arr.view(_SIGNED[unsigned][0])).view(dtype)
         else:
             t = torch.from_numpy(arr)
-        leaves.append(t.to(device))
-    return tree_unflatten(like, leaves), manifest["step"], manifest.get(
-        "meta", {})
+        leaves.append(t if shardings is not None else t.to(device))
+    tree = tree_unflatten(like, leaves)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+
+        tree = distribute(tree, shardings)
+    return tree, manifest["step"], manifest.get("meta", {})
 
 
 class CheckpointManager:
@@ -125,12 +156,21 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, meta: dict | None = None,
              blocking: bool = False):
         self.wait()
-        # snapshot to host synchronously; write asynchronously
+        # snapshot to host synchronously (a DTensor gathered whole on
+        # every rank, which all call this); write asynchronously, on rank
+        # 0 alone when the tree is sharded
+        sharded = any(is_dtensor(x) for _, x in named_leaves(tree))
         host_tree = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
+            lambda x: ((x.full_tensor() if is_dtensor(x) else x).detach()
+                       .to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else np.array(x)),
             tree)
         path = os.path.join(self.dir, f"ckpt_{step:08d}")
+        if sharded:
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                return
 
         def _write():
             save_checkpoint(path, host_tree, step=step, meta=meta)

@@ -1,7 +1,7 @@
 """Bit-precise op generator (paper §8), in PyTorch.
 
 Counterpart of ``repro/core/codegen.py``: for one (bits, taps,
-signedness, spacer regime) tuple it returns a closure over the lane
+signedness, spacer regime, word width) tuple it returns a closure over the lane
 functions of ``core.samd`` and ``core.conv`` with the geometry fixed,
 and a model of the native scalar instructions each word operation costs
 (the paper's op-level analysis). The closures run eagerly; nothing is
@@ -108,7 +108,8 @@ def generate_pointwise(bits: int, regime: str = "temporary",
 def generate_conv(bits: int, taps: int, signed: bool = True,
                   word_bits: int = 32, regime: str = "permanent",
                   kernel: Optional[np.ndarray] = None,
-                  channels: int = 1) -> SynthesizedOp:
+                  channels: int = 1,
+                  paper_compat: bool = False) -> SynthesizedOp:
     """A conv-via-multiplication op (§5) for one geometry.
 
     With ``kernel`` given, the §7 constant-kernel analysis picks the least
@@ -124,6 +125,7 @@ def generate_conv(bits: int, taps: int, signed: bool = True,
             bits, taps * channels, bits, kernel_signed=signed,
             input_signed=signed)
         plan = conv_mod.make_plan(bits, taps, signed, word_bits,
+                                  paper_compat=paper_compat,
                                   lane_width=max(lane, bits + 1))
 
     if channels > 1:

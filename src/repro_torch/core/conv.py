@@ -13,9 +13,10 @@ widening multiply then needs the Grys adjustment of its high half
 (``hi -= sx*k_word + sk*x_word``), and each extracted lane the Fig. 12
 borrow fixup, both applied here as in the reference.
 
-Words are int32 holding uint32 bits (``core.samd``); a 32x32 -> 64-bit
-product is a (hi, lo) pair of such words, built from 16-bit limbs as the
-reference builds it. 64-bit words are not ported.
+Words are int32 holding uint32 bits or int64 holding uint64 bits
+(``core.samd``); a widening product is a (hi, lo) pair of such words,
+built from 16-bit limbs (32-bit words) or 32-bit limbs (64-bit words) as
+the reference builds it.
 """
 from __future__ import annotations
 
@@ -26,17 +27,20 @@ import torch
 from repro_torch.core import masks
 from repro_torch.core.samd import (
     SAMDFormat,
-    as_unsigned,
     conv_format,
     dw_add,
     mul_wide_u32,
+    mul_wide_u64,
+    narrow,
     pack,
     scale_format,
+    shr,
     sign_extend_for_mul,
     to_int32_words,
     unpack_signed_product,
     vector_scale_perm,
-    words32,
+    widen,
+    word_mask,
 )
 
 
@@ -69,8 +73,10 @@ class ConvPlan:
 
 
 def make_plan(bits: int, taps: int, signed: bool = True, word_bits: int = 32,
+              paper_compat: bool = False,
               lane_width: int | None = None) -> ConvPlan:
-    fmt = conv_format(bits, taps, signed, word_bits, lane_width)
+    fmt = conv_format(bits, taps, signed, word_bits, paper_compat,
+                      lane_width)
     plan = ConvPlan(fmt, taps)
     plan.validate()
     return plan
@@ -78,35 +84,46 @@ def make_plan(bits: int, taps: int, signed: bool = True, word_bits: int = 32,
 
 # -- double-width lane machinery ---------------------------------------------
 
-def _msb_halves(fmt: SAMDFormat) -> tuple[int, int]:
-    """The lane-MSB mask of a 64-bit product as (hi, lo) 32-bit masks."""
-    msb = masks.build_mask(fmt.lane_width - 1, 1, fmt.lane_width, 64)
-    return msb >> 32, msb & 0xFFFFFFFF
+def _dw_extract_lane(hi: torch.Tensor, lo: torch.Tensor, offset: int,
+                     width: int, word_bits: int) -> torch.Tensor:
+    """``width`` bits at bit ``offset`` of the (hi, lo) pair, as int64
+    (the pair's halves in their int64 form, ``samd.widen``)."""
+    wb = word_bits
+    if offset + width <= wb:
+        out = shr(lo, offset, wb)
+    elif offset >= wb:
+        out = shr(hi, offset - wb, wb)
+    else:  # straddles the boundary
+        out = shr(lo, offset, wb) | (hi << (wb - offset))
+    return out & word_mask((1 << width) - 1, wb)
 
 
 def _dw_msb_fixup(hi: torch.Tensor, lo: torch.Tensor, fmt: SAMDFormat):
     """Signed-product borrow fixup (Fig. 12) across a (hi, lo) pair."""
-    m_hi, m_lo = _msb_halves(fmt)
-    s_hi = to_int32_words(as_unsigned(hi) & m_hi)
-    s_lo = to_int32_words(as_unsigned(lo) & m_lo)
+    wb = fmt.word_bits
+    msb = masks.build_mask(fmt.lane_width - 1, 1, fmt.lane_width, 2 * wb)
+    s_hi = narrow(widen(hi, wb) & word_mask(msb >> wb, wb), wb)
+    s_lo = narrow(widen(lo, wb) & word_mask(msb & ((1 << wb) - 1), wb), wb)
     q_hi, q_lo = dw_add((hi, lo), (s_hi, s_lo))
     return q_hi ^ s_hi, q_lo ^ s_lo
 
 
 def _widening_mul(x_word: torch.Tensor, k_word: torch.Tensor,
                   fmt: SAMDFormat):
-    words32(fmt)
-    return mul_wide_u32(x_word, k_word)
+    """The full unsigned product of two words as a (hi, lo) pair."""
+    if fmt.word_bits == 32:
+        return mul_wide_u32(x_word, k_word)
+    return mul_wide_u64(x_word, k_word)
 
 
-def _grys_adjust_hi(hi, x_word, k_word):
+def _grys_adjust_hi(hi, x_word, k_word, fmt: SAMDFormat):
     """hi -= sx*k + sk*x: the signed high half of an unsigned widening
     multiply (§6, Grys [9]); sx, sk are the words' top bits."""
-    x, k = as_unsigned(x_word), as_unsigned(k_word)
-    h = as_unsigned(hi)
-    h = h - torch.where((x >> 31) == 1, k, torch.zeros_like(k))
-    h = h - torch.where((k >> 31) == 1, x, torch.zeros_like(x))
-    return to_int32_words(h)
+    wb = fmt.word_bits
+    x, k, h = widen(x_word, wb), widen(k_word, wb), widen(hi, wb)
+    h = h - torch.where(shr(x, wb - 1, wb) == 1, k, torch.zeros_like(k))
+    h = h - torch.where(shr(k, wb - 1, wb) == 1, x, torch.zeros_like(x))
+    return narrow(h, wb)
 
 
 # -- the op: full 1D convolution via scalar multiplication --------------------
@@ -142,7 +159,7 @@ def chunk_products(x_words: torch.Tensor, k_word: torch.Tensor,
     signed high-half adjustment and borrow fixup. Returns (hi, lo)."""
     hi, lo = _widening_mul(x_words, k_word, plan.fmt)
     if plan.fmt.signed:
-        hi = _grys_adjust_hi(hi, x_words, k_word)
+        hi = _grys_adjust_hi(hi, x_words, k_word, plan.fmt)
         hi, lo = _dw_msb_fixup(hi, lo, plan.fmt)
     return hi, lo
 
@@ -150,15 +167,17 @@ def chunk_products(x_words: torch.Tensor, k_word: torch.Tensor,
 def extract_outputs(hi: torch.Tensor, lo: torch.Tensor,
                     plan: ConvPlan) -> torch.Tensor:
     """The ``lanes + taps - 1`` output lanes of each chunk product, those
-    that straddle bit 32 included, as int32 [..., nc, out_lanes]."""
-    L = plan.fmt.lane_width
-    both = (as_unsigned(hi) << 32) | as_unsigned(lo)  # bits 0..63 (int64)
+    that straddle the halves included, as int32 [..., nc, out_lanes]:
+    sign-extended over the lane when signed, then taken to int32 as the
+    reference does (a lane wider than 32 bits wraps)."""
+    fmt = plan.fmt
+    wb, L = fmt.word_bits, fmt.lane_width
+    h, lo_ = widen(hi, wb), widen(lo, wb)
     outs = []
     for t in range(plan.out_lanes_per_chunk):
-        # arithmetic >> on int64 is exact for the low L bits at t*L + L <= 64
-        v = (both >> (t * L)) & ((1 << L) - 1)
-        if plan.fmt.signed:
-            v = v - (((v >> (L - 1)) & 1) << L)
+        v = _dw_extract_lane(h, lo_, t * L, L, wb)
+        if fmt.signed and L < 64:
+            v = v - ((shr(v, L - 1, 64) & 1) << L)
         outs.append(to_int32_words(v))
     return torch.stack(outs, dim=-1)
 
@@ -212,7 +231,7 @@ def samd_conv_multichannel(x: torch.Tensor, kernel: torch.Tensor,
     kw = pack_conv_kernel(kernel, plan)[..., :, None]  # [C, 1]
     hi, lo = _widening_mul(xw, kw, fmt)
     if fmt.signed:
-        hi = _grys_adjust_hi(hi, xw, kw)
+        hi = _grys_adjust_hi(hi, xw, kw, fmt)
     acc = hi[..., 0, :], lo[..., 0, :]
     for c in range(1, x.shape[-2]):
         acc = dw_add(acc, (hi[..., c, :], lo[..., c, :]))
@@ -224,8 +243,9 @@ def samd_conv_multichannel(x: torch.Tensor, kernel: torch.Tensor,
 def samd_conv_grouped(x: torch.Tensor, kernel: torch.Tensor, bits: int,
                       word_bits: int = 32) -> torch.Tensor:
     """Multichannel conv-as-multiplication with channels accumulated in
-    packed groups sized by the worst-case §7 bound for a 32-bit word,
-    and the groups summed after extraction.
+    packed groups sized by the worst-case §7 bound for a ``word_bits``
+    word (lanes of ``word_bits // taps`` bits), and the groups summed
+    after extraction.
 
     x: [C, n], kernel: [C, taps] -> [n + taps - 1] int32.
     """
@@ -263,7 +283,7 @@ def conv_by_scale(x: torch.Tensor, kernel: torch.Tensor, bits: int,
                       device=x.device)
     for j in range(taps):
         # the tap as a full-width two's-complement word
-        kj = to_int32_words(kernel[..., j].to(torch.int64))[..., None]
+        kj = narrow(kernel[..., j].to(torch.int64), word_bits)[..., None]
         vals = unpack_signed_product(vector_scale_perm(xw, kj, fmt), fmt, n)
         out[..., j:j + n] += vals
     return out

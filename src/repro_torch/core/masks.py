@@ -32,3 +32,22 @@ def even_lane_mask(w: int, word_bits: int = 32) -> int:
 def odd_lane_mask(w: int, word_bits: int = 32) -> int:
     """All bits of every odd-numbered ``w``-bit lane."""
     return build_mask(w, w, 2 * w, word_bits)
+
+
+def msb_lane_mask(w: int, word_bits: int = 32) -> int:
+    """1 in the most significant bit of each ``w``-bit lane."""
+    return build_mask(w - 1, 1, w, word_bits)
+
+
+def lsb_lane_mask(w: int, word_bits: int = 32) -> int:
+    """1 in the least significant bit of each ``w``-bit lane."""
+    return build_mask(0, 1, w, word_bits)
+
+
+def lane_mask(lane_width: int, word_bits: int = 32) -> int:
+    """All bits of each lane (everything below the last partial lane)."""
+    return build_mask(0, lane_width, lane_width, word_bits)
+
+
+def full_mask(word_bits: int = 32) -> int:
+    return (1 << word_bits) - 1

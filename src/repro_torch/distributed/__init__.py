@@ -1,2 +1,3 @@
-"""Gradient compression with error feedback (the port of
-``repro.distributed.compression``)."""
+"""Distribution (the port of ``repro.distributed``): the sharding rules
+and their DTensor placements (``sharding``), and gradient compression
+with error feedback and the compressed all-reduce (``compression``)."""

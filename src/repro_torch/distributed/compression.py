@@ -11,7 +11,8 @@ lost is carried into the next step (the residual):
 lanes a 32-bit word (``core.samd.dense_format(4, signed=True)``), the
 paper's packing applied to gradient traffic. ``compress_tree`` applies
 the quantize-dequantize round trip leaf by leaf, so a run that trains
-with it has the dynamics of the compressed all-reduce. Payloads, scales
+with it has the dynamics of the compressed all-reduce; ``compressed_psum``
+is that all-reduce over a process group. Payloads, scales
 and residuals are the reference's bit for bit (the same f32 arithmetic;
 packed words as int32 where the reference has uint32).
 """
@@ -68,6 +69,31 @@ def compress_grad(g: torch.Tensor, residual: torch.Tensor, bits: int = 8):
     else:
         raise ValueError(bits)
     return q, scale, acc - deq
+
+
+def compressed_psum(x: torch.Tensor, group=None, bits: int = 8):
+    """All-reduce (SUM) with quantize-before-send semantics: ``x`` is
+    quantized (int8, or 4-bit SAMD-packed), dequantized, and the f32
+    values summed over ``group``: a process group, a one-dimensional
+    DeviceMesh (e.g. ``mesh["data"]``, one mesh dim), or None for the
+    default group. What crosses the link is the quantized payload;
+    accumulation is in f32 after dequantization, as the reference's
+    ``psum`` inside ``shard_map``. Bits other than 8 and 4 raise
+    ValueError before any collective."""
+    import torch.distributed as dist
+
+    if bits == 8:
+        q, scale = quantize_int8(x)
+        deq = dequantize_int8(q, scale)
+    elif bits == 4:
+        q, scale = quantize_int4_packed(x)
+        deq = dequantize_int4_packed(q, scale, x.numel(), x.shape)
+    else:
+        raise ValueError(bits)
+    if hasattr(group, "get_group"):  # a DeviceMesh of one dim
+        group = group.get_group()
+    dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+    return deq
 
 
 def compress_tree(grads, residuals, bits: int = 8):

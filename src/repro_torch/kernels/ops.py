@@ -126,7 +126,13 @@ def samd_conv1d(x: torch.Tensor, kernel: torch.Tensor,
     card one fused kernel packs, multiplies and overlap-adds
     (``samd_conv1d_launch``); on the CPU the plain composition runs. The
     plan's lane-safety check runs first and raises ``LaneSafetyError`` on
-    an unsafe plan."""
+    an unsafe plan.
+
+    A plan of 64-bit words raises ValueError on either device: the fused
+    kernel, like the TPU kernel it ports, multiplies 32-bit words, and
+    ``core.conv.samd_conv_full`` runs 64-bit plans. (The reference's op
+    returns wrong values for such a plan, without an error.)"""
+    _conv.check_kernel_word_bits(plan)
     assert_safe(check_conv_plan(plan))
     fn = _conv.samd_conv1d_cuda if _on_cuda(x) else _conv.samd_conv1d_plain
     return fn(x, kernel, plan)

@@ -47,7 +47,6 @@ from repro_torch.core.conv import (
     pack_conv_kernel,
     pack_conv_operand,
 )
-from repro_torch.core.samd import words32
 from repro_torch.kernels._build import Kernel, ptr, stream_handle
 from repro_torch.kernels.samd_matmul import unpack_codes
 from repro_torch.quant.config import QuantConfig
@@ -346,7 +345,7 @@ def conv1d_launch_args(x: torch.Tensor, kernel: torch.Tensor,
     launcher's arguments. Takes x [n] and kernel [plan.taps] of integer
     types of ``INT_CODES``, each of any stride, both on one CUDA device;
     raises on anything else."""
-    words32(plan.fmt)
+    check_kernel_word_bits(plan)
     plan.validate()
     if x.dim() != 1 or kernel.dim() != 1 or kernel.shape[0] != plan.taps:
         raise ValueError(f"x must be [n] and kernel [{plan.taps}], got "
@@ -390,6 +389,16 @@ def _launch_on(t: torch.Tensor, fn: str, *args) -> None:
             KERNEL.launch(fn, *args)
 
 
+def check_kernel_word_bits(plan: ConvPlan) -> None:
+    """Raise ValueError unless ``plan`` has 32-bit words: the conv1d
+    kernels multiply 32-bit words, as the TPU kernel they port does."""
+    if plan.fmt.word_bits != 32:
+        raise ValueError(
+            "the fused samd_conv1d kernel, like the TPU kernel it ports, "
+            f"multiplies 32-bit words; a {plan.fmt.word_bits}-bit plan runs "
+            "through repro_torch.core.conv.samd_conv_full")
+
+
 def samd_conv_chunks_plain(x_words: torch.Tensor, k_word: torch.Tensor,
                            plan: ConvPlan) -> torch.Tensor:
     """[nc] chunk words x the kernel word -> int32 [nc, out_lanes]."""
@@ -401,7 +410,7 @@ def samd_conv_chunks_cuda(x_words: torch.Tensor, k_word: torch.Tensor,
     """Launch ``samd_conv_chunks_launch`` on the current stream: int32
     chunk words [nc] and a one-element int32 kernel word on one CUDA
     device; raises on anything else."""
-    words32(plan.fmt)
+    check_kernel_word_bits(plan)
     plan.validate()
     dev = x_words.device
     if x_words.dtype != torch.int32 or k_word.dtype != torch.int32:

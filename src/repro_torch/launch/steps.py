@@ -13,14 +13,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.distributed.dtensor import placed_like, replicating
+from repro_torch.distributed.dtensor import unshard
 from repro_torch.models.model import forward, init_cache
 from repro_torch.optim import adamw_update, cosine_warmup
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross entropy in f32."""
-    lf = logits.to(torch.float32)
+    """Token-mean cross entropy in f32. Vocab-sharded logits (a DTensor)
+    are gathered over the vocab first, the port's choice where the
+    reference keeps them sharded: DTensor's gather on a sharded dim
+    leaves a masked partial sum that the subtraction cannot take."""
+    lf = unshard(logits, -1).to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     tgt = torch.gather(lf, -1, targets.to(torch.int64)[..., None])[..., 0]
     return torch.mean(lse - tgt)
@@ -51,7 +56,7 @@ def value_and_grad(loss_fn, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     total, raw = loss_fn(tree_unflatten(params, leaves), batch)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
              for p, g in zip(leaves, grads)]
     return raw.detach(), tree_unflatten(params, grads)
 
@@ -63,16 +68,23 @@ def make_train_step(cfg: ArchConfig, run: RunConfig):
     ``run.grad_accum`` > 1 splits the batch into that many micro-batches
     (rows ``i*mb:(i+1)*mb``), sums their gradients in f32 buffers and
     divides at the end, as the reference's scan does; the loss is the
-    mean of the micro-batches' raw losses."""
+    mean of the micro-batches' raw losses.
+
+    On parameters, moments and a batch of DTensors (placed by
+    ``distributed.sharding``) the step runs sharded, and every new leaf
+    keeps the placements its input had."""
     loss_fn = make_loss_fn(cfg, run)
 
     def train_step(params, opt_state, batch):
+        with replicating(*tree_leaves(params)):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         lr = cosine_warmup(opt_state.step, peak_lr=run.learning_rate,
                            warmup=run.lr_warmup)
         if run.grad_accum > 1:
             mb = batch["tokens"].shape[0] // run.grad_accum
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=lr.device)
             for i in range(run.grad_accum):
@@ -87,7 +99,10 @@ def make_train_step(cfg: ArchConfig, run: RunConfig):
         new_params, new_opt, metrics = adamw_update(
             grads, opt_state, params, lr,
             weight_decay=run.weight_decay, grad_clip=run.grad_clip)
-        return new_params, new_opt, {"loss": loss, "lr": lr, **metrics}
+        # a sharded step's scalars come out replicated, as the reference's
+        return new_params, new_opt, {"loss": unshard(loss), "lr": lr,
+                                     "grad_norm": unshard(
+                                         metrics["grad_norm"])}
 
     return train_step
 

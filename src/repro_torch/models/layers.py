@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import is_dtensor, linear_input
+from repro_torch.distributed.dtensor import on_local_heads
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.quant.config import QuantConfig
 from repro_torch.quant.packing import (
@@ -69,7 +72,7 @@ def apply_linear(w, x: torch.Tensor) -> torch.Tensor:
         if len(w.orig_shape) == 2 and w.axis == 0:
             return qmatmul(x, w.packed, w.scale, w.k, w.cfg)
         return torch.matmul(x, materialize(w, x.dtype))
-    return torch.matmul(x, w)
+    return torch.matmul(linear_input(x), w)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +133,12 @@ def attention(q, k, v, q_pos, k_pos, chunk: int = 1024):
     """Causal GQA attention, query-chunked to bound live memory.
 
     q [B, Sq, H, dh]; k/v [B, Sk, Hkv, dh]; q_pos [B, Sq]; k_pos [B, Sk]
-    (negative = masked).
+    (negative = masked). DTensors attend on each rank's own batch rows
+    and heads (``dtensor.on_local_heads``).
     """
+    if is_dtensor(q):
+        return on_local_heads(functools.partial(attention, chunk=chunk),
+                              q, k, v, q_pos, k_pos)
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, dh)

@@ -14,6 +14,7 @@ which ``unstack_blocks`` turns into the port's (``convert`` does so).
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Optional
 
@@ -22,10 +23,25 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.dtensor import constrain, replicating, unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import QuantizedTensor
 from repro_torch.models.spec import TensorSpec, map_specs
+
+
+# Optional activation-sharding hint (sequence parallelism): DTensor
+# placements (one per mesh dim) for the [B, S, D] residual stream, which
+# a DTensor stream is redistributed to between blocks, as the reference
+# applies its PartitionSpec with with_sharding_constraint.
+_ACT_SHARDING: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_act_sharding", default=None)
+
+
+def set_activation_sharding(placements) -> None:
+    """Set (or with None clear) the residual stream's placements between
+    blocks: a sequence of DTensor placements, or a ``sharding.Layout``."""
+    _ACT_SHARDING.set(getattr(placements, "placements", placements))
 
 
 def _attn_template(cfg: ArchConfig) -> dict:
@@ -349,6 +365,12 @@ class _EmbedGather(torch.autograd.Function):
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    # A DTensor table (vocab on 'model', embed on the data axes) is
+    # gathered whole, the ids stay sharded over the batch. The embed dims'
+    # gather is FSDP's; the vocab's is the port's choice where the
+    # reference keeps the vocab sharded (DTensor's embedding rule takes a
+    # vocab-sharded table only with replicated ids)
+    table = unshard(table)
     if table.requires_grad and torch.is_grad_enabled():
         return _EmbedGather.apply(table, tokens)
     return table[tokens]
@@ -363,6 +385,19 @@ def _remat(fn, remat: bool):
                              use_reentrant=False)
 
 
+def _scoped(fn):
+    """``fn(params, tokens, ...)`` inside ``replicating`` when its tokens
+    or embedding table are DTensors."""
+
+    @functools.wraps(fn)
+    def run(params, tokens, *args, **kwargs):
+        with replicating(tokens, params["embed"]):
+            return fn(params, tokens, *args, **kwargs)
+
+    return run
+
+
+@_scoped
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
@@ -406,6 +441,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     MLP, as the reference's ``jax.checkpoint`` wraps them. The recompute
     runs the same operations on the same inputs, so the MoE router
     picks the same experts.
+
+    DTensor parameters and tokens (``distributed.sharding``) run the
+    forward sharded; ``set_activation_sharding`` then places the residual
+    stream between blocks.
     """
     if remat and (cache is not None or pool_cache is not None):
         raise ValueError("remat is for training: it takes no cache")
@@ -470,9 +509,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                               x, kv_c)
         else:
             raise ValueError(cfg.family)
+        x = constrain(x, _ACT_SHARDING.get())  # the optional hint
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).t())
+        logits = L.apply_linear(params["embed"].to(x.dtype).t(), x)
     else:
         logits = L.apply_linear(params["lm_head"], x)
     return (logits, aux_total) if return_aux else logits

@@ -30,8 +30,8 @@ class AdamWState:
 
 
 def adamw_init(params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):  # a DTensor parameter's moments take its placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),

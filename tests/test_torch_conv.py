@@ -149,12 +149,25 @@ def test_plans_refuse_what_the_reference_refuses():
         conv.make_plan(5, 3, True)
     with pytest.raises(ValueError, match="does not fit"):
         jconv.make_plan(5, 3, True)
-    plan = conv.make_plan(2, 3, True, word_bits=64)  # geometry only
-    assert plan.lanes_per_chunk == jconv.ConvPlan(
-        jsamd.SAMDFormat(2, plan.fmt.lane_width, True, 64), 3).lanes_per_chunk
-    with pytest.raises(NotImplementedError):
-        conv.samd_conv_full(torch.zeros(8, dtype=torch.int64),
-                            torch.zeros(3, dtype=torch.int64), plan)
+    # 64-bit words: the plans the reference makes, and its convolution
+    import jax
+
+    x = np.random.default_rng(5).integers(-2, 2, 40)
+    k = np.array([1, -2, 1])
+    with jax.enable_x64(True):
+        jplan = jconv.make_plan(2, 3, True, word_bits=64)
+        want = np.asarray(jconv.samd_conv_full(jnp.asarray(x),
+                                               jnp.asarray(k), jplan))
+        with pytest.raises(ValueError, match="does not fit"):
+            jconv.make_plan(11, 3, True, word_bits=64)
+    plan = conv.make_plan(2, 3, True, word_bits=64)
+    assert plan == conv.ConvPlan(samd.SAMDFormat(
+        2, jplan.fmt.lane_width, True, 64), 3)
+    got = conv.samd_conv_full(torch.from_numpy(x), torch.from_numpy(k), plan)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.convolve(x, k))
+    with pytest.raises(ValueError, match="does not fit"):
+        conv.make_plan(11, 3, True, word_bits=64)
 
 
 # -- core/samd lane helpers ------------------------------------------------------

@@ -138,3 +138,54 @@ def test_port_sources_import_no_ml_dtypes_or_triton():
     blocked = re.compile(r"^\s*(import|from)\s+(ml_dtypes|triton)\b", re.M)
     for path in _sources():
         assert not blocked.findall(path.read_text()), path
+
+
+_SLICE_PROBE = r"""
+import sys
+for name in ("jax", "repro", "benchmarks", "ml_dtypes", "triton"):
+    sys.modules[name] = None    # any import of these now raises
+import torch
+import torch.distributed as dist
+from repro_torch.core import conv, samd
+from repro_torch.distributed import compression, sharding
+from repro_torch.launch import mesh
+from repro_torch.models.model import build_template, set_activation_sharding
+from repro_torch.configs.archs import get_arch
+assert not dist.is_initialized()
+plan = conv.make_plan(4, 3, True, word_bits=64)
+x = torch.arange(-8, 8).repeat(5)
+out = conv.samd_conv_full(x, torch.tensor([3, -8, 7]), plan)
+assert out.dtype == torch.int32 and out.shape == (82,)
+w = samd.pack(x, samd.dense_format(4, True, 64))
+assert w.dtype == torch.int64
+class FakeMesh:
+    shape = {"data": 16, "model": 16}
+specs = sharding.param_pspecs(build_template(get_arch("qwen3-14b")),
+                              FakeMesh())
+assert specs["embed"] == sharding.P("model", ("data",))
+try:
+    mesh.make_test_mesh(2, 2, device="cpu")
+except RuntimeError as e:
+    assert "init_process_group" in str(e)
+else:
+    raise AssertionError("a mesh without a process group")
+assert not dist.is_initialized() and callable(compression.compressed_psum)
+set_activation_sharding(None)
+print("ok")
+"""
+
+
+def test_slice_modules_need_no_jax_triton_or_process_group():
+    """The 64-bit words (``core.samd``, ``core.conv``), the sharding rules,
+    ``launch.mesh`` and ``compression.compressed_psum`` import and run on
+    the CPU with ``jax``, ``repro``, ``benchmarks``, ``ml_dtypes`` and
+    ``triton`` blocked, and none of them initialises a process group: a
+    mesh asked for without one raises."""
+    for rel in ("distributed/sharding.py", "launch/mesh.py"):
+        assert (PORT / rel) in _sources()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run([sys.executable, "-c", _SLICE_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
