@@ -257,6 +257,18 @@ Phases, any failure exits non-zero:
       dequantize(quantize(x)); (l3) the sharded weights saved and
       restored with ``load_checkpoint(..., shardings=)``, bit-identical.
       The process group is destroyed at the end of the phase.
+  (m) the multi-pod dry-run (``launch.dryrun.lower_cell``), each cell
+      as rank 0 of a fake process group, every tensor fake on a cuda
+      mesh: (m1) qwen3-14b train_4k on 2x16x16 (remat), (m2) qwen3-14b
+      decode_32k at 4 bits with int8 KV on 16x16, (m3) olmoe-1b-7b
+      prefill_32k at 4 bits, (m4) zamba2-7b long_500k; each prints its
+      result dict and must be ``ok`` with no kernel launched (the matmul
+      wrapper gives a fake tensor its output's shape only); (m5) (l)'s
+      NCCL world-1 (1, 1) mesh with (c)'s 4-bit qwen1.5-0.5b placed
+      serve-mode: one ``make_prefill_step`` and 8 ``make_serve_step``
+      calls on DTensors (each rank's own packed words through the matmul
+      kernels) give the ids of the same steps on plain tensors, with
+      both matmul launchers counted in the DTensor run.
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -407,6 +419,17 @@ WORDS64_ITERS = 5
 # compressed all-reduce on 2^24 floats
 DIST_STEPS = 2
 PSUM_N = 1 << 24
+# (m) the dry-run: cells traced on a fake process group of 256 or 512
+# ranks with fake tensors on a cuda mesh, (tag, arch, shape, lower_cell
+# keywords); (m5) lockstep serving on DTensors: (c)'s first max_batch
+# prompts cut to LOCKSTEP_PROMPT tokens, then LOCKSTEP_STEPS decode steps
+DRYRUN_CELLS = (
+    ("m1", "qwen3-14b", "train_4k", dict(multi_pod=True, remat="block")),
+    ("m2", "qwen3-14b", "decode_32k", dict(quant_bits=4, kv_bits=8)),
+    ("m3", "olmoe-1b-7b", "prefill_32k", dict(quant_bits=4)),
+    ("m4", "zamba2-7b", "long_500k", {}),
+)
+LOCKSTEP_PROMPT, LOCKSTEP_STEPS = 32, 8
 DECODE_LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                   ("attn", "wo"), ("mlp", "wg"), ("mlp", "wu"),
                   ("mlp", "wd")]
@@ -3762,6 +3785,107 @@ def run_distributed(dev):
     return out
 
 
+def run_dryrun(dev):
+    """Phase (m): (m1)-(m4) ``launch.dryrun.lower_cell`` on DRYRUN_CELLS
+    (fake tensors on a cuda mesh of a fake group; no kernel may launch:
+    the matmul wrapper's fake path gives shapes only), each result printed
+    and ``ok``; (m5) ``lockstep_on_dtensors``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for tag, arch, shape, kw in DRYRUN_CELLS:
+        ops.reset_launch_counts()
+        r = dryrun.lower_cell(arch, shape, device="cuda", verbose=False,
+                              **kw)
+        log(f"  ({tag}) " + json.dumps(r))
+        if r["status"] != "ok":
+            raise AssertionError(f"({tag}) {r['cell']}: {r['status']}")
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"({tag}) a kernel launched on fake "
+                                 f"tensors: {ops.launch_counts()}")
+        out[tag] = {k: r[k] for k in ("cell", "mesh", "quant_bits",
+                                      "kv_bits", "trace_s",
+                                      "collective_bytes", "dominant")}
+    out["m5"] = lockstep_on_dtensors(dev)
+    return out
+
+
+def lockstep_on_dtensors(dev):
+    """(m5) an NCCL group of world size 1 and a (1, 1) ("data", "model")
+    mesh, as (l)'s: (c)'s 4-bit qwen1.5-0.5b placed serve-mode
+    (``param_pspecs(..., mode="serve")``, its ring by ``cache_pspecs``),
+    one ``make_prefill_step`` of (c)'s first max_batch prompts (cut to
+    LOCKSTEP_PROMPT tokens) and LOCKSTEP_STEPS ``make_serve_step`` calls
+    on DTensors: the same ids as the steps on plain tensors, with the
+    matmul launchers counted in the DTensor run (launch counts reset just
+    before it). Returns the counts and both runs' step times."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.archs import QWEN15_05B
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_template, init_cache
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.quant.config import QuantConfig
+
+    cfg, q, b = QWEN15_05B, QuantConfig(bits=4), SERVE["max_batch"]
+    tmpl = build_template(cfg)
+    params = quantize_params(seeded_params(cfg, dev), tmpl, q)
+    shape = ShapeConfig("decode", LOCKSTEP_PROMPT + LOCKSTEP_STEPS, b,
+                        "decode")
+    run = RunConfig(arch=cfg, shape=shape, quant=q)
+    prefill = steps_mod.make_prefill_step(cfg, run)
+    serve_step = steps_mod.make_serve_step(cfg, run)
+    prompts = torch.from_numpy(np.stack([
+        r.prompt[:LOCKSTEP_PROMPT] for r in workload(1, b)])).to(dev)
+
+    def ids(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def decode(p, tokens, cache):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = [prefill(p, {"tokens": tokens}, cache)[0]]
+        for pos in range(LOCKSTEP_PROMPT, shape.seq_len):
+            out.append(serve_step(p, out[-1][:, None], cache, pos)[0])
+        got = torch.stack([ids(t) for t in out], dim=1)
+        torch.cuda.synchronize(dev)
+        return got, (time.perf_counter() - t0) * 1e3 / len(out)
+
+    want, plain_ms = decode(params, prompts,
+                            init_cache(cfg, b, shape.seq_len, device=dev))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_test_mesh(1, 1, device="cuda")
+        dp = sh.distribute(params, sh.placements(
+            sh.param_pspecs(tmpl, mesh, q, mode="serve"), mesh))
+        cache = sh.distribute(
+            init_cache(cfg, b, shape.seq_len, device=dev),
+            sh.placements(sh.cache_pspecs(cfg, shape, mesh), mesh))
+        tokens = sh.distribute(prompts, sh.placements(
+            sh.data_pspec(b, mesh), mesh))
+        ops.reset_launch_counts()
+        got, ms = decode(dp, tokens, cache)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+    finally:
+        dist.destroy_process_group()
+    if not torch.equal(got, want):
+        raise AssertionError(f"(m5) DTensor ids {got.tolist()} != plain "
+                             f"{want.tolist()}")
+    if not (counts.get(SPLITK) and counts.get(TILE)):
+        raise AssertionError(f"(m5) launches {counts}")
+    out = dict(steps=1 + LOCKSTEP_STEPS, batch=b, ids_identical=True,
+               launches=counts, step_ms=ms, step_ms_plain=plain_ms)
+    log("  (m5) lockstep steps on DTensors: " + json.dumps(out))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -4096,6 +4220,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     distributed = run_distributed(dev)
+    log(f"(m) the dry-run on fake groups of 256 and 512 ranks, then "
+        f"lockstep serving on DTensors (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = run_dryrun(dev)
+    dry["phase_s"] = round(time.perf_counter() - t0, 1)
+    counts = dry["m5"]["launches"]
+    kernels.append(kernel_entry(
+        f"samd_matmul split-K (sharded lockstep decode, "
+        f"M={SERVE['max_batch']})", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts[SPLITK],
+        err_mm[4, "temporary", True, SERVE["max_batch"]], decode_t["bf16"],
+        "(m5): (c)'s 4-bit weights as DTensors on a (1, 1) mesh, each "
+        "rank's own words; numbers of (c)'s bf16 KV decode row"))
+    kernels.append(kernel_entry(
+        "samd_matmul tile (sharded lockstep prefill)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123", counts[TILE],
+        err_mm[4, "temporary", True, 1024], prefill_t,
+        f"(m5): one prefill of {SERVE['max_batch']} x {LOCKSTEP_PROMPT} "
+        "rows; numbers of the M=1024 row"))
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
     log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
@@ -4105,6 +4250,7 @@ def main() -> int:
     log("training: " + json.dumps(training))
     log("64-bit words: " + json.dumps(words64))
     log("distribution: " + json.dumps(distributed))
+    log("dry-run: " + json.dumps(dry))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

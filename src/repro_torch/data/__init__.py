@@ -1,4 +1,4 @@
 """Synthetic training data (the port of ``repro.data``)."""
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, make_batch_specs
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "make_batch_specs"]

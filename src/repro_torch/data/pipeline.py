@@ -18,6 +18,7 @@ import threading
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 class SyntheticLM:
@@ -75,3 +76,11 @@ class SyntheticLM:
         with self._lock:
             self._queue.clear()
             self._next_step = step
+
+
+def make_batch_specs(vocab: int, seq_len: int, global_batch: int):
+    """Meta tensors for one global training batch (a dry-run's input):
+    int32 ``tokens`` and ``targets`` [global_batch, seq_len]."""
+    return {name: torch.empty((global_batch, seq_len), dtype=torch.int32,
+                              device="meta")
+            for name in ("tokens", "targets")}

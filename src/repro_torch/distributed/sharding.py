@@ -239,6 +239,7 @@ class Layout:
 
 def _placements_of(spec: P, mesh) -> tuple:
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
@@ -247,18 +248,21 @@ def _placements_of(spec: P, mesh) -> tuple:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
         idx = [names.index(a) for a in axes if a in names]
-        if idx != sorted(idx):
-            # DTensor splits a dim over several mesh dims in the mesh's
-            # order; another order is the dry-run port's case
-            raise NotImplementedError(
-                f"dim {d} of {spec} is split over {axes} in another order "
-                f"than the mesh's {tuple(names)}; left for the dry-run "
-                "port (launch/dryrun.py)")
         for i in idx:
             if out[i] != Replicate():
                 raise ValueError(f"mesh axis {names[i]!r} shards two dims "
                                  f"of {spec}")
             out[i] = Shard(d)
+        if len(idx) == 2 and idx[0] > idx[1]:
+            # the multi-pod FSDP dim, ('data', 'pod') on a (pod, data, ...)
+            # mesh: data-major as the reference's NamedSharding splits it.
+            # DTensor splits in mesh order unless the earlier mesh dim is
+            # a strided shard of the later one's blocks
+            out[idx[1]] = _StridedShard(d, split_factor=mesh.size(idx[0]))
+        elif idx != sorted(idx):
+            raise NotImplementedError(
+                f"dim {d} of {spec} is split over {axes}: more than two "
+                f"mesh axes out of the mesh's order {tuple(names)}")
     return tuple(out)
 
 
@@ -281,7 +285,12 @@ def placements(tree, mesh):
     """Spec tree -> tree of :class:`Layout` on the DeviceMesh ``mesh``: a
     dim sharded on mesh axis a becomes ``Shard(dim)`` at a's mesh dim,
     every other mesh dim ``Replicate()``. A dim split over two mesh axes
-    in another order than the mesh's raises NotImplementedError."""
+    in the mesh's order is ``Shard(dim)`` on both; over two in the other
+    order (('data', 'pod') on the multi-pod mesh), ``Shard(dim)`` on the
+    major axis and ``_StridedShard(dim, split_factor=<its size>)`` on the
+    minor one, so each rank holds the block the reference's
+    NamedSharding gives it (data-major, pod-minor). More than two axes
+    out of order raise NotImplementedError."""
     return _map_pspecs(lambda p: Layout(mesh, _placements_of(p, mesh)),
                        tree)
 
@@ -289,12 +298,24 @@ def placements(tree, mesh):
 def distribute(tree, layouts):
     """Place every tensor of ``tree`` by the Layout at the same place in
     ``layouts`` (``distribute_tensor``: each rank keeps its shard of the
-    full tensor it holds, so every rank passes the same ``tree``)."""
-    from torch.distributed.tensor import distribute_tensor
-
+    full tensor it holds, so every rank passes the same ``tree``). A
+    QuantizedTensor's ``packed`` and ``scale`` are placed by its
+    layout's."""
     from repro_torch.tree import tree_leaves, tree_unflatten
 
-    out = [distribute_tensor(t.to(lay.mesh.device_type), lay.mesh,
-                             lay.placements)
-           for t, lay in zip(tree_leaves(tree), tree_leaves(layouts))]
+    out = []
+    for t, lay in zip(tree_leaves(tree), tree_leaves(layouts)):
+        if isinstance(t, QuantizedTensor):
+            t = dataclasses.replace(t, packed=_place(t.packed, lay.packed),
+                                    scale=_place(t.scale, lay.scale))
+        else:
+            t = _place(t, lay)
+        out.append(t)
     return tree_unflatten(tree, out)
+
+
+def _place(t, lay: Layout):
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(lay.mesh.device_type), lay.mesh,
+                             lay.placements)

@@ -16,6 +16,7 @@ several launchers, and each is counted apart).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -137,6 +138,19 @@ def stream_handle(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, for a launcher (the raw
     handle, without building a ``torch.cuda.Stream`` on every call)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.cache
+def _fake_tensor_class():
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return FakeTensor
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``: a shape, a
+    dtype and a device, no data), which a launcher has no pointer for."""
+    return isinstance(t, _fake_tensor_class())
 
 
 def ptr(t) -> ctypes.c_void_p:

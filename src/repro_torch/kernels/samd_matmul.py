@@ -23,7 +23,7 @@ import math
 import torch
 
 from repro_torch.core import samd
-from repro_torch.kernels._build import Kernel, stream_handle
+from repro_torch.kernels._build import Kernel, is_fake, stream_handle
 from repro_torch.quant.config import QuantConfig
 
 SPLITK = "samd_matmul_splitk_launch"
@@ -132,7 +132,8 @@ def samd_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     -> [..., N]. Takes bf16 ``x``, int32 words and f32 scales, all on one
     CUDA device; raises on anything else, and on a failed build or
     launch. The launcher follows :func:`launcher_for`, the K split
-    :func:`split_k`."""
+    :func:`split_k`. A fake ``x`` (a traced dry-run) gets its output's
+    shape and launches nothing."""
     m, n, _ = _check(x, packed, scale, k, cfg)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"samd_matmul kernel takes bf16 x, got {x.dtype}")
@@ -152,7 +153,7 @@ def samd_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
         scale = scale.contiguous()
     out = torch.empty(x.shape[:-1] + (n,), dtype=torch.bfloat16,
                       device=x.device)
-    if m == 0:
+    if m == 0 or is_fake(x):  # a fake tensor has a shape and no data
         return out
     vpw = cfg.values_per_word
     splits, per = split_k(m, n, k, vpw)

@@ -1,8 +1,10 @@
 """Step functions (the port of ``repro/launch/steps.py``): the training
-step (loss, gradients with optional accumulation and remat, AdamW), and
-the serving steps: ragged decode over the paged KV pool or the per-slot
-ring, batched prefill into either, self-speculative draft + verify, and
-in-step sampling.
+step (loss, gradients with optional accumulation and remat, AdamW), the
+lockstep prefill and decode steps of the dry-run, the serving steps:
+ragged decode over the paged KV pool or the per-slot ring, batched
+prefill into either, self-speculative draft + verify, and in-step
+sampling; and ``input_specs``, every input of a dry-run cell as meta
+tensors.
 
 Each step samples on the device, so only the next token ids (and, for a
 speculative tick, the accept lengths) cross to the host. Caches are
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
 from repro_torch.distributed.dtensor import placed_like, replicating
 from repro_torch.distributed.dtensor import unshard
 from repro_torch.models.model import forward, init_cache
@@ -105,6 +107,47 @@ def make_train_step(cfg: ArchConfig, run: RunConfig):
                                          metrics["grad_norm"])}
 
     return train_step
+
+
+def _greedy_last(logits: torch.Tensor) -> torch.Tensor:
+    """int32 argmax of each row's last logits in f32 (a vocab-sharded
+    DTensor gathered over the vocab first)."""
+    last = unshard(logits[:, -1], -1).to(torch.float32)
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
+def make_prefill_step(cfg: ArchConfig, run: RunConfig):
+    """prefill_step(params, batch, cache) -> (next ids [B] int32, cache):
+    the lockstep prefill of the reference, every prompt of ``batch``
+    (``tokens`` [B, S], optional ``prefix_embeds``) written into the
+    ring ``cache`` (``init_cache``) from column 0, IN PLACE (the cache
+    returned is the one given), and greedy next ids."""
+
+    def prefill_step(params, batch, cache):
+        logits = forward(params, batch["tokens"], cfg, cache=cache,
+                         cache_index=0,
+                         prefix_embeds=batch.get("prefix_embeds"))
+        return _greedy_last(logits), cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig, run: RunConfig):
+    """serve_step(params, tokens, cache, pos) -> (next ids [B] int32,
+    cache): one lockstep decode step of the reference, tokens [B, 1] at
+    position ``pos`` for every row, written into the ring ``cache`` IN
+    PLACE. ``pos`` is an int or a 0-d integer tensor, which is read to
+    the host (the ring's column is a slice)."""
+
+    def serve_step(params, tokens, cache, pos):
+        pos = int(pos)
+        positions = torch.full((tokens.shape[0], 1), pos,
+                               dtype=torch.int32, device=tokens.device)
+        logits = forward(params, tokens, cfg, positions=positions,
+                         cache=cache, cache_index=pos)
+        return _greedy_last(logits), cache
+
+    return serve_step
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
@@ -382,3 +425,49 @@ def make_speculative_verify_step(cfg: ArchConfig, max_len: int,
 
     return verify_step
 
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no memory)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                kv_bits=None) -> dict:
+    """Meta-tensor stand-ins for every input of this (arch x shape) cell,
+    in the reference's shapes and dtypes (token ids int32, prefix
+    embeddings bf16): train ``batch`` (``tokens``, ``targets``); prefill
+    ``batch`` (``tokens``) and ``cache``; decode ``tokens`` [B, 1],
+    ``cache`` and ``pos`` (0-d int32); train and prefill batches of the
+    modality-stub archs carry ``prefix_embeds`` [B, P, D].
+
+    Caches are the port's ``init_cache`` in its list layout for every
+    cell. The reference prefills the uniform families into its stacked
+    scan-over-layers cache, which keeps XLA's compile time flat in depth;
+    eager PyTorch compiles nothing, so the port keeps one layout (a kept
+    difference: the same tensors, one per layer)."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict = {}
+
+    def ids(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        specs["batch"] = {"tokens": ids(b, s), "targets": ids(b, s)}
+    elif shape.kind == "prefill":
+        specs["batch"] = {"tokens": ids(b, s)}
+        specs["cache"] = init_cache(cfg, b, s + _prefix_len(cfg),
+                                    device="meta")
+    elif shape.kind == "decode":
+        specs["tokens"] = ids(b, 1)
+        specs["cache"] = init_cache(cfg, b, s, kv_bits=kv_bits,
+                                    device="meta")
+        specs["pos"] = ids()
+    if shape.kind in ("train", "prefill") and cfg.n_prefix_embeds:
+        specs["batch"]["prefix_embeds"] = torch.empty(
+            (b, cfg.n_prefix_embeds, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    return specs
+
+
+def _prefix_len(cfg: ArchConfig) -> int:
+    return cfg.n_prefix_embeds

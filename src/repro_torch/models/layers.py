@@ -18,8 +18,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.dtensor import is_dtensor, linear_input
-from repro_torch.distributed.dtensor import on_local_heads
+from repro_torch.distributed.dtensor import (
+    fsdp_gathered, grad_placed, is_dtensor, linear_input, merge_heads,
+    on_local_blocks, on_local_columns, on_local_words, whole_heads,
+    write_columns,
+)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.quant.config import QuantConfig
 from repro_torch.quant.packing import (
@@ -60,19 +63,34 @@ def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
         return w
     k = w.k
     rest = tuple(s for i, s in enumerate(w.orig_shape) if i != w.axis)
-    dense2d = dequant_weights(w.packed, w.scale, k, w.cfg, dtype=dtype)
+    if is_dtensor(w.packed):  # each rank's own columns, the words whole
+        dense2d = on_local_columns(
+            functools.partial(dequant_weights, k=k, cfg=w.cfg, dtype=dtype),
+            w.packed, w.scale, k)
+        # whole experts (or leading rest dim) before the columns unflatten
+        dense2d = whole_heads(dense2d, rest[0]) if len(rest) > 1 else dense2d
+    else:
+        dense2d = dequant_weights(w.packed, w.scale, k, w.cfg, dtype=dtype)
     return dense2d.reshape((k,) + rest).movedim(0, w.axis)
 
 
 def apply_linear(w, x: torch.Tensor) -> torch.Tensor:
     """x[..., K] @ w[K, N] where w is a tensor or a QuantizedTensor: a 2D
-    weight packed along axis 0 goes through ``qmatmul``, any other packed
-    layout is materialized, then multiplied."""
+    weight packed along axis 0 goes through ``qmatmul`` (on each rank's
+    own words where they are a DTensor: ``dtensor.on_local_words``), any
+    other packed layout is materialized, then multiplied."""
     if isinstance(w, QuantizedTensor):
         if len(w.orig_shape) == 2 and w.axis == 0:
+            if is_dtensor(w.packed):
+                return on_local_words(
+                    functools.partial(qmatmul, cfg=w.cfg), linear_input(x),
+                    w.packed, w.scale, w.k, w.cfg.values_per_word,
+                    w.cfg.group_size is not None)
             return qmatmul(x, w.packed, w.scale, w.k, w.cfg)
         return torch.matmul(x, materialize(w, x.dtype))
-    return torch.matmul(linear_input(x), w)
+    # the gradient comes back on the output's placements, so its
+    # flatten in the weight's gradient never meets a sequence split
+    return grad_placed(torch.matmul(linear_input(x), fsdp_gathered(w)))
 
 
 # ---------------------------------------------------------------------------
@@ -134,11 +152,12 @@ def attention(q, k, v, q_pos, k_pos, chunk: int = 1024):
 
     q [B, Sq, H, dh]; k/v [B, Sk, Hkv, dh]; q_pos [B, Sq]; k_pos [B, Sk]
     (negative = masked). DTensors attend on each rank's own batch rows
-    and heads (``dtensor.on_local_heads``).
+    and heads (``dtensor.on_local_blocks``).
     """
     if is_dtensor(q):
-        return on_local_heads(functools.partial(attention, chunk=chunk),
-                              q, k, v, q_pos, k_pos)
+        return on_local_blocks(
+            lambda *a: (attention(*a, chunk=chunk),), (q, k, v, q_pos, k_pos),
+            ((0, 2),) * 3 + ((0, None),) * 2, ((0, 2),))[0]
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, dh)
@@ -235,8 +254,13 @@ def _cache_write(buf, val, cache_index) -> None:
     ``cache_index..cache_index + S - 1``, the reference's
     ``dynamic_update_slice``) or a [B] tensor (ragged batch: row i writes
     at its own offset). Per-row offsets must be in range (the engine
-    clamps them), as in the reference."""
+    clamps them), as in the reference. A DTensor ring takes an int
+    offset and is written on each rank's own columns
+    (``dtensor.write_columns``)."""
     val = val.to(buf.dtype)
+    if is_dtensor(buf):
+        write_columns(buf, val, int(cache_index))
+        return
     if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
         b, s = val.shape[:2]
         rows = torch.arange(b, device=buf.device)[:, None]
@@ -315,9 +339,9 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
+    q = whole_heads(q, h).reshape(b, s, h, dh)
+    k = whole_heads(k, hkv).reshape(b, s, hkv, dh)
+    v = whole_heads(v, hkv).reshape(b, s, hkv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -385,7 +409,7 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                                                q.dtype)
             att = attention(q, k_full, v_full, positions, k_pos,
                             chunk=cfg.attn_chunk)
-    return apply_linear(p["wo"], att.reshape(b, s, h * dh))
+    return apply_linear(p["wo"], merge_heads(att))
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +464,23 @@ def top_k_lower_first(probs: torch.Tensor, k: int):
     descending sort."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _experts(activation, dispatch, combine, xg, w_up, *rest):
+    """The experts' part of ``moe_block`` (bf16 einsums): tokens
+    dispatched to their experts' slots, through each expert's MLP, and
+    combined back: ([G, T, D],)."""
+    xin = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    h1 = torch.einsum("gecd,edf->gecf", xin, w_up)
+    if activation == "swiglu":
+        w_gate, w_down = rest
+        hg = torch.einsum("gecd,edf->gecf", xin, w_gate)
+        h = F.silu(hg.to(torch.float32)).to(torch.bfloat16) * h1
+    else:
+        (w_down,) = rest
+        h = F.silu(h1.to(torch.float32)).to(torch.bfloat16)
+    y = torch.einsum("gecf,efd->gecd", h, w_down)
+    return (torch.einsum("gtec,gecd->gtd", combine, y),)
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg, *, group_tokens: int = 2048):
@@ -497,15 +538,17 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, group_tokens: int = 2048):
         combine = combine + sel.to(torch.float32) * gate_vals[
             ..., slot][..., None, None]
 
-    xin = torch.einsum("gtec,gtd->gecd", dispatch, xg.to(torch.bfloat16))
-    h1 = torch.einsum("gecd,edf->gecf", xin, materialize(p["w_up"]))
-    if cfg.activation == "swiglu":
-        hg = torch.einsum("gecd,edf->gecf", xin, materialize(p["w_gate"]))
-        h = F.silu(hg.to(torch.float32)).to(torch.bfloat16) * h1
+    weights = [materialize(p[n]) for n in ("w_up", "w_gate", "w_down")
+               if n in p]
+    args = (dispatch, combine.to(torch.bfloat16), xg.to(torch.bfloat16),
+            *weights)
+    if is_dtensor(xg):  # each rank's own groups and experts
+        (out,) = on_local_blocks(
+            functools.partial(_experts, cfg.activation), args,
+            ((0, 2), (0, 2), (0, None)) + ((None, 0),) * len(weights),
+            ((0, None),))
     else:
-        h = F.silu(h1.to(torch.float32)).to(torch.bfloat16)
-    y = torch.einsum("gecf,efd->gecd", h, materialize(p["w_down"]))
-    out = torch.einsum("gtec,gecd->gtd", combine.to(torch.bfloat16), y)
+        (out,) = _experts(cfg.activation, *args)
     out = out.reshape(b, s, d).to(x.dtype)
 
     if cfg.dense_residual:

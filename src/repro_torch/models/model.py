@@ -23,11 +23,13 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.dtensor import constrain, replicating, unshard
+from repro_torch.distributed.dtensor import constrain, fsdp_gathered
+from repro_torch.distributed.dtensor import replicating, unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import QuantizedTensor
 from repro_torch.models.spec import TensorSpec, map_specs
+from repro_torch.tree import tree_map
 
 
 # Optional activation-sharding hint (sequence parallelism): DTensor
@@ -373,7 +375,17 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     table = unshard(table)
     if table.requires_grad and torch.is_grad_enabled():
         return _EmbedGather.apply(table, tokens)
-    return table[tokens]
+    # an embedding, not an index: DTensor (2.11) has no rule for indexing
+    # with ids split over two mesh dims, as the multi-pod batch is
+    return F.embedding(tokens, table)
+
+
+def _gathered(p: dict) -> dict:
+    """A layer's parameters with their FSDP shards gathered (DTensors
+    split over the data axes in train mode), as FSDP gathers a layer's
+    weights before it runs; packed weights and plain tensors as they
+    are."""
+    return tree_map(fsdp_gathered, p)
 
 
 def _remat(fn, remat: bool):
@@ -443,8 +455,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     picks the same experts.
 
     DTensor parameters and tokens (``distributed.sharding``) run the
-    forward sharded; ``set_activation_sharding`` then places the residual
-    stream between blocks.
+    forward sharded: each layer gathers its FSDP shards first, and the
+    residual stream is put back on one placement after every residual
+    add, ``set_activation_sharding``'s, else the embedding's.
     """
     if remat and (cache is not None or pool_cache is not None):
         raise ValueError("remat is for training: it takes no cache")
@@ -456,34 +469,47 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a DTensor residual stream is put back on one placement after every
+    # residual add: the hint's, else the embedding's (left to DTensor,
+    # a norm of a partial sum may come out split over the sequence, and
+    # the split drifts from block to block)
+    stream = _ACT_SHARDING.get() or getattr(x, "placements", None)
+
+    def settle(x):
+        return constrain(x, stream)
 
     def attn_layer(p, x, layer_cache, pool_layer):
-        x = x + L.attention_block(
+        p = _gathered(p)
+        x = settle(x + L.attention_block(
             p["attn"], x, positions, cfg, kv_cache=layer_cache,
             page_table=page_table, page_size=page_size,
             paged_attn=paged_attn, cache_index=cache_index,
             pool_kv=pool_layer, pool_bound=pool_bound,
-        )
+        ))
         if cfg.family == "dense":
-            return x + L.mlp_block(p["mlp"], x, cfg), None
+            return settle(x + L.mlp_block(p["mlp"], x, cfg)), None
         mo, aux = L.moe_block(p["moe"], x, cfg,
                               group_tokens=cfg.moe_group_tokens)
-        return x + mo, aux
+        return settle(x + mo), aux
 
     def rwkv_layer(p, x, layer_cache):
+        p = _gathered(p)
         delta, st_tm = S.rwkv6_time_mix(p["tm"], x, cfg, layer_cache)
-        x = x + delta
+        x = settle(x + delta)
         delta, st_cm = S.rwkv6_channel_mix(p["cm"], x, cfg, layer_cache)
-        return x + delta, {**st_tm, **st_cm}
+        return settle(x + delta), {**st_tm, **st_cm}
 
     def mamba_layer(p, x, layer_cache):
+        p = _gathered(p)
         delta, st = S.mamba2_block(p["m"], x, cfg, layer_cache)
-        return x + delta, st
+        return settle(x + delta), st
 
     def shared_layer(p_attn, p_mlp, x, kv_c):
-        x = x + L.attention_block(p_attn, x, positions, cfg, kv_cache=kv_c,
-                                  cache_index=cache_index)
-        return x + L.mlp_block(p_mlp, x, cfg)
+        p_attn, p_mlp = _gathered(p_attn), _gathered(p_mlp)
+        x = settle(x + L.attention_block(p_attn, x, positions, cfg,
+                                         kv_cache=kv_c,
+                                         cache_index=cache_index))
+        return settle(x + L.mlp_block(p_mlp, x, cfg))
 
     attn_fn, rwkv_fn, mamba_fn, shared_fn = (
         _remat(fn, remat)
@@ -509,10 +535,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                               x, kv_c)
         else:
             raise ValueError(cfg.family)
-        x = constrain(x, _ACT_SHARDING.get())  # the optional hint
+        x = settle(x)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = L.apply_linear(params["embed"].to(x.dtype).t(), x)
+        # the table's FSDP shards gathered before the transpose: PyTorch
+        # 2.11 mis-sizes the multi-pod strided split gathered after one
+        table = fsdp_gathered(params["embed"])
+        logits = L.apply_linear(table.to(x.dtype).t(), x)
     else:
         logits = L.apply_linear(params["lm_head"], x)
     return (logits, aux_total) if return_aux else logits

@@ -64,3 +64,22 @@ def init_from_spec(spec_tree, generator: torch.Generator,
         return (w * sp.init_scale).to(sp.dtype)
 
     return map_specs(make, spec_tree)
+
+
+def shape_dtype_from_spec(spec_tree):
+    """Meta tensors of each spec's shape and dtype (stand-ins that hold
+    no memory; the reference's ShapeDtypeStructs)."""
+    return map_specs(
+        lambda sp: torch.empty(sp.shape, dtype=sp.dtype, device="meta"),
+        spec_tree)
+
+
+def param_count(spec_tree) -> int:
+    n = 0
+
+    def add(sp):
+        nonlocal n
+        n += math.prod(sp.shape)
+
+    map_specs(add, spec_tree)
+    return n

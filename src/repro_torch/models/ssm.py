@@ -22,6 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import (
+    is_dtensor, merge_heads, on_local_blocks, whole_heads,
+)
 from repro_torch.models.layers import apply_linear, rms_norm
 
 F32 = torch.float32
@@ -117,7 +120,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, state=None):
     a = -torch.exp(p["a_log"].to(F32))                       # [H]
     loga = dt * a                                            # [B,T,H] <= 0
 
-    xh = xs.reshape(b, t, n_heads, hd).to(F32)
+    xh = whole_heads(xs, n_heads).reshape(b, t, n_heads, hd).to(F32)
     bmat = bmat.to(F32)                                      # [B,T,N]
     cmat = cmat.to(F32)
     xdt = xh * dt[..., None]
@@ -130,17 +133,27 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, state=None):
         ys = torch.einsum("bhpn,bn->bhp", s1, cmat[:, 0])[:, None]
     else:
         pad = (-t) % 128
-        if pad:
+
+        def scan(xdt, bmat, cmat, loga, s0):
+            if not pad:
+                return ssd_chunked(xdt, bmat, cmat, loga, s0)
+
             def padf(a):
                 return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
             ys, s1 = ssd_chunked(padf(xdt), padf(bmat), padf(cmat),
                                  padf(loga), s0)
-            ys = ys[:, :t]
+            return ys[:, :t], s1
+
+        if is_dtensor(xdt):
+            ys, s1 = on_local_blocks(
+                scan, (xdt, bmat, cmat, loga, s0),
+                ((0, 2), (0, None), (0, None), (0, 2), (0, 1)),
+                ((0, 2), (0, 1)))
         else:
-            ys, s1 = ssd_chunked(xdt, bmat, cmat, loga, s0)
+            ys, s1 = scan(xdt, bmat, cmat, loga, s0)
 
     ys = ys + xh * p["d_skip"].to(F32)[None, None, :, None]
-    y = ys.reshape(b, t, d_inner).to(x.dtype)
+    y = merge_heads(ys).to(x.dtype)
     y = y * F.silu(z.to(F32)).to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     out = apply_linear(p["out_proj"], y)
@@ -156,14 +169,40 @@ def rwkv6_dims(cfg):
     return n_heads, cfg.rwkv_head_dim
 
 
-def _ddlerp(x, xprev, mu, lora_a, lora_b):
-    """RWKV6 data-dependent lerp: x + (xprev - x) * (mu + lora(xx))."""
+def _on_local_rows(fn, rows, weights):
+    """``fn(*rows, *weights)`` -> [B, T, D] (``rows`` [B, T, D] each), on
+    each rank's own batch rows with the weights whole where the first
+    row tensor is a DTensor (left to DTensor, the low-rank einsums may
+    split the batch over the model axis that splits the weights' output
+    dim too, which no product can take)."""
+    if not is_dtensor(rows[0]):
+        return fn(*rows, *weights)
+    return on_local_blocks(
+        lambda *a: (fn(*a),), (*rows, *weights),
+        ((0, None),) * len(rows) + ((None, None),) * len(weights),
+        ((0, None),))[0]
+
+
+def _lerp(x, xprev, mu, lora_a, lora_b):
     diff = xprev - x
     xx = x + diff * mu
     adj = torch.tanh(torch.einsum("btd,dr->btr", xx.to(F32),
                                   lora_a.to(F32)))
     adj = torch.einsum("btr,rd->btd", adj, lora_b.to(F32))
     return x + diff * (mu + adj.to(x.dtype))
+
+
+def _ddlerp(x, xprev, mu, lora_a, lora_b):
+    """RWKV6 data-dependent lerp: x + (xprev - x) * (mu + lora(xx))."""
+    return _on_local_rows(_lerp, (x, xprev), (mu, lora_a, lora_b))
+
+
+def _decay(xw, w0, lora_a, lora_b):
+    """The data-dependent decay exp(-exp(w0 + lora(xw))) in f32."""
+    wlo = torch.tanh(torch.einsum("btd,dr->btr", xw.to(F32),
+                                  lora_a.to(F32)))
+    wlo = torch.einsum("btr,rd->btd", wlo, lora_b.to(F32))
+    return torch.exp(-torch.exp(w0.to(F32)[None, None] + wlo))
 
 
 def wkv6_chunked(r, k, v, logw, u, s0, chunk: int = 32):
@@ -232,18 +271,15 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None):
     xw = _ddlerp(xn, xprev, p["mu_w"], p["lora_w_a"], p["lora_w_b"])
     xg = _ddlerp(xn, xprev, p["mu_g"], p["lora_g_a"], p["lora_g_b"])
 
-    r = apply_linear(p["wr"], xr).reshape(b, t, h, hd)
-    k = apply_linear(p["wk"], xk).reshape(b, t, h, hd)
-    v = apply_linear(p["wv"], xv).reshape(b, t, h, hd)
+    r = whole_heads(apply_linear(p["wr"], xr), h).reshape(b, t, h, hd)
+    k = whole_heads(apply_linear(p["wk"], xk), h).reshape(b, t, h, hd)
+    v = whole_heads(apply_linear(p["wv"], xv), h).reshape(b, t, h, hd)
     g = apply_linear(p["wg"], xg)
 
-    # data-dependent decay (low-rank)
-    wlo = torch.tanh(torch.einsum("btd,dr->btr", xw.to(F32),
-                                  p["w_lora_a"].to(F32)))
-    wlo = torch.einsum("btr,rd->btd", wlo, p["w_lora_b"].to(F32))
-    decay = torch.exp(
-        -torch.exp(p["w0"].to(F32)[None, None] + wlo)
-    ).reshape(b, t, h, hd)                                   # in (0,1)
+    # data-dependent decay (low-rank), in (0, 1)
+    decay = _on_local_rows(_decay, (xw,), (p["w0"], p["w_lora_a"],
+                                           p["w_lora_b"]))
+    decay = whole_heads(decay, h).reshape(b, t, h, hd)
 
     u = p["u_bonus"].to(F32)                                 # [H, hd]
     rf, kf, vf = r.to(F32), k.to(F32), v.to(F32)
@@ -260,11 +296,16 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None):
         ys = y[:, None]
     else:
         logw = torch.log(torch.clamp(decay.to(F32), min=1e-30))
-        ys, s1 = wkv6_chunked(rf, kf, vf, logw, u, s0)
+        if is_dtensor(rf):
+            ys, s1 = on_local_blocks(
+                wkv6_chunked, (rf, kf, vf, logw, u, s0),
+                ((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
+        else:
+            ys, s1 = wkv6_chunked(rf, kf, vf, logw, u, s0)
 
     # per-head group norm, then silu(g) gate
     yn = rms_norm(ys.reshape(b, t, h, hd), p["gn"], cfg.norm_eps)
-    yn = yn.reshape(b, t, d).to(x.dtype)
+    yn = merge_heads(yn).to(x.dtype)
     yn = yn * F.silu(g.to(F32)).to(x.dtype)
     out = apply_linear(p["wo"], yn)
     return out, {"wkv": s1, "shift_tm": xn[:, -1].to(F32)}

@@ -125,6 +125,29 @@ def test_samd_matmul_kernel_matches_plain(cuda, m, k, n, bits, spacer,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 1024])
+def test_samd_matmul_gives_fake_tensors_their_shape_only(cuda, m):
+    """Fake CUDA tensors (a dry-run's trace) through ``ops.samd_matmul``
+    get a fake output of the kernel's shape and dtype on the card, and
+    no launch is made or counted; the same call on real tensors then
+    launches once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    cfg = QuantConfig(bits=4)
+    x, packed, scale = _matmul_inputs(cuda, gen, m, 1024, 96, cfg, True)
+    before = ops.launch_counts()
+    with FakeTensorMode() as mode:
+        fx, fp, fs = (mode.from_tensor(t) for t in (x, packed, scale))
+        out = ops.samd_matmul(fx, fp, fs, 1024, cfg)
+        assert (out.shape, out.dtype, out.device) == (
+            (m, 96), torch.bfloat16, x.device)
+    assert ops.launch_counts() == before
+    ops.samd_matmul(x, packed, scale, 1024, cfg)
+    assert _moved(before, ops.launch_counts()) == {mm.launcher_for(m)}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("bits,spacer", [(9, "temporary"), (10, "temporary"),
                                          (12, "permanent"), (16, "temporary"),

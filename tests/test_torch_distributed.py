@@ -52,6 +52,9 @@ PSUM_TOL = 2.0 ** -20
 SCALE = dict(d_model=64, d_ff=128, vocab=256, n_heads=4, n_kv_heads=4,
              head_dim=16)
 BATCH, SEQ = 4, 32
+PREFILL = 24  # the decode step's position after a prefill of that length
+# head counts the model axis of a (1, 4) mesh does not divide
+UNEVEN = dict(SCALE, n_heads=6, n_kv_heads=2)
 # a run whose parameters move (tests/test_torch_train.py's settings): lr
 # at step 0 is 1e-4, about a bf16 step of a 0.02-scale weight
 TRAIN_KW = dict(learning_rate=1e-3, lr_warmup=10)
@@ -108,10 +111,10 @@ def _mesh():
     return make_test_mesh(2, 2, device="cpu")
 
 
-def _cfg():
+def _cfg(scale=SCALE):
     from repro_torch.configs.archs import smoke_config
 
-    return smoke_config("qwen1.5-0.5b").scaled(**SCALE)
+    return smoke_config("qwen1.5-0.5b").scaled(**scale)
 
 
 def _model():
@@ -143,12 +146,15 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def _reference(out_dir):
-    """The reference on the test config, in this process: its seeded
-    weights saved for the ranks (``params.pt``, the port's layout) and
-    {"cfg", "params", "step": (params, opt, metrics) of one jitted
-    ``make_train_step``, "loss": the forward's ``lm_loss``} on the
-    ``_batch()``, as numpy."""
+def _reference(out_dir, scale=SCALE, decode=False, train=True):
+    """The reference on the test config (``scale`` over the smoke
+    qwen1.5-0.5b), in this process: its seeded weights saved for the
+    ranks (``params.pt``, the port's layout) and {"cfg", "params",
+    "step": (params, opt, metrics) of one jitted ``make_train_step``,
+    "loss": the forward's ``lm_loss``} on the ``_batch()``, as numpy;
+    with ``decode``, also "decode_loss": the ``lm_loss`` of one decode
+    step's logits (``_decode_logits``) against the targets' column
+    ``PREFILL``; without ``train``, no "step"."""
     import dataclasses
 
     import jax
@@ -163,9 +169,9 @@ def _reference(out_dir):
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models.convert import params_from_numpy
 
-    jcfg = j_smoke_config("qwen1.5-0.5b").scaled(**SCALE)
+    jcfg = j_smoke_config("qwen1.5-0.5b").scaled(**scale)
     cfg = ArchConfig(**dataclasses.asdict(jcfg))
-    assert cfg == _cfg()
+    assert cfg == _cfg(scale)
     jparams = init_from_spec(build_template(jcfg), jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams),
                                device="cpu")
@@ -174,11 +180,23 @@ def _reference(out_dir):
     run = JRunConfig(arch=jcfg, shape=JShapeConfig("t", SEQ, BATCH, "train"),
                      **TRAIN_KW)
     step = jax.jit(j_steps.make_train_step(jcfg, run))(
-        jparams, adamw_init(jparams), batch)
+        jparams, adamw_init(jparams), batch) if train else None
     logits = forward(jparams, batch["tokens"], jcfg)[0]
     loss = j_steps.lm_loss(logits, batch["targets"])
-    return {"cfg": cfg, "params": jparams, "step": step,
-            "loss": float(loss)}
+    out = {"cfg": cfg, "params": jparams, "step": step, "loss": float(loss)}
+    if decode:
+        from repro.models.model import init_cache
+
+        cache = init_cache(jcfg, BATCH, SEQ)
+        _, cache, _ = forward(jparams, batch["tokens"][:, :PREFILL], jcfg,
+                              cache=cache, cache_index=0)
+        logits = forward(
+            jparams, batch["tokens"][:, PREFILL:PREFILL + 1], jcfg,
+            positions=jnp.full((BATCH, 1), PREFILL, jnp.int32), cache=cache,
+            cache_index=PREFILL)[0]
+        out["decode_loss"] = float(j_steps.lm_loss(
+            logits, batch["targets"][:, PREFILL:PREFILL + 1]))
+    return out
 
 
 def _reference_params(out_dir):
@@ -382,6 +400,123 @@ def test_activation_sharding_hint_redistributes_between_blocks(tmp_path):
     assert got == pytest.approx(ref["loss"], rel=LOSS_TOL)
 
 
+def _decode_logits(params, batch, cfg, cache):
+    """The logits of one decode step at position ``PREFILL``, after the
+    first ``PREFILL`` tokens are prefilled into the ring ``cache``."""
+    from repro_torch.models.model import forward
+
+    toks = batch["tokens"]
+    forward(params, toks[:, :PREFILL], cfg, cache=cache, cache_index=0)
+    return forward(params, toks[:, PREFILL:PREFILL + 1], cfg,
+                   positions=torch.full((BATCH, 1), PREFILL), cache=cache,
+                   cache_index=PREFILL)
+
+
+def _uneven_heads_ranks(rank, out_dir, part):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_template
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import named_leaves
+
+    mesh = make_test_mesh(1, 4, device="cpu")
+    cfg = _cfg(UNEVEN)
+    tmpl = build_template(cfg)
+    params = _reference_params(out_dir)
+    batch = _batch()
+    blay = sh.placements(sh.data_pspec(BATCH, mesh), mesh)
+    db = {k: sh.distribute(v, blay) for k, v in batch.items()}
+    if part == "decode":
+        _uneven_decode(rank, out_dir, mesh, cfg, tmpl, params, batch, db)
+        return
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", SEQ, BATCH, "train"),
+                    **TRAIN_KW)
+    step = steps.make_train_step(cfg, run)
+    want_p, _, want_m = step(params, adamw_init(params), batch)
+    layouts = sh.placements(sh.param_pspecs(tmpl, mesh), mesh)
+    # q's 6 x 16 features and k / v's 2 x 16 split over 4 ranks: each
+    # rank's shard would cut a head
+    assert layouts["blocks"][0]["attn"]["wq"].placements[1].is_shard(1)
+    assert layouts["blocks"][0]["attn"]["wk"].placements[1].is_shard(1)
+    dp = sh.distribute(params, layouts)
+    got_p, _, got_m = step(dp, adamw_init(dp), db)
+    loss = got_m["loss"].full_tensor().item()
+    gnorm = got_m["grad_norm"].full_tensor().item()
+    assert abs(loss - want_m["loss"].item()) <= LOSS_TOL * abs(loss)
+    assert abs(gnorm - want_m["grad_norm"].item()) <= GNORM_TOL * gnorm
+    lr = want_m["lr"].item()
+    for (name, g), (_, w), (_, p0) in zip(
+            named_leaves(got_p), named_leaves(want_p), named_leaves(params)):
+        assert isinstance(g, DTensor), name
+        tol = 2 * lr * (1 + 0.1 * p0.float().abs()) + _bf16_ulp(w.float())
+        assert ((g.full_tensor().float() - w.float()).abs() <= tol).all(), name
+    if rank == 0:
+        torch.save({"loss": loss, "grad_norm": gnorm},
+                   os.path.join(out_dir, "uneven.pt"))
+
+
+def _uneven_decode(rank, out_dir, mesh, cfg, tmpl, params, batch, db):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_cache
+
+    # a decode step on the ring placed by cache_pspecs: 2 KV heads on a
+    # 4-wide model axis put the sequence there (flash-decoding layout)
+    shape = ShapeConfig("d", SEQ, BATCH, "decode")
+    clay = sh.placements(sh.cache_pspecs(cfg, shape, mesh), mesh)
+    assert clay["layers"][0]["k"].placements[1].is_shard(1)
+    plain = init_cache(cfg, BATCH, SEQ, device="cpu")
+    want = _decode_logits(params, batch, cfg, plain)
+    cache = sh.distribute(init_cache(cfg, BATCH, SEQ, device="cpu"), clay)
+    serve = sh.placements(sh.param_pspecs(tmpl, mesh, mode="serve"), mesh)
+    got = _decode_logits(sh.distribute(params, serve), db, cfg, cache)
+    tgt = batch["targets"][:, PREFILL:PREFILL + 1]
+    want_loss = steps.lm_loss(want, tgt).item()
+    got_loss = steps.lm_loss(got, db["targets"][:, PREFILL:PREFILL + 1])
+    got_loss = got_loss.full_tensor().item()
+    assert abs(got_loss - want_loss) <= LOSS_TOL * abs(want_loss)
+    # the sequence-sharded ring holds what the plain ring holds
+    for mine, theirs in zip(cache["layers"], plain["layers"]):
+        assert isinstance(mine["k"], DTensor)
+        assert torch.equal(mine["pos"].full_tensor(), theirs["pos"])
+        w = theirs["k"].float()
+        err = (mine["k"].full_tensor().float() - w).abs().max().item()
+        assert err <= 2.0 ** -6 * w.abs().max().item(), err
+    if rank == 0:
+        torch.save({"decode_loss": got_loss},
+                   os.path.join(out_dir, "uneven.pt"))
+
+
+@pytest.mark.parametrize("part", ["train", "decode"])
+def test_sharded_steps_split_heads_the_model_axis_does_not_divide(tmp_path,
+                                                                   part):
+    """Six query and two KV heads on a (1, 4) mesh, whose model axis
+    splits their features into shards that each cut a head: the train
+    step, and a decode step (prefill, then one token, on a ring whose
+    sequence is on the model axis), run sharded (``dtensor.whole_heads``
+    gathers such features before the head split) and hold to the
+    unsharded port on every rank and to the reference."""
+    decode = part == "decode"
+    ref = _reference(str(tmp_path), UNEVEN, decode=decode, train=not decode)
+    _spawn(_uneven_heads_ranks, tmp_path, part)
+    got = torch.load(os.path.join(tmp_path, "uneven.pt"))
+    if decode:
+        assert got["decode_loss"] == pytest.approx(ref["decode_loss"],
+                                                   rel=LOSS_TOL)
+        return
+    jm = ref["step"][2]
+    assert got["loss"] == pytest.approx(float(jm["loss"]), rel=LOSS_TOL)
+    assert got["grad_norm"] == pytest.approx(float(jm["grad_norm"]),
+                                             rel=GNORM_TOL)
+
+
 # -- compressed all-reduce ----------------------------------------------------
 
 def _psum_ranks(rank, out_dir):
@@ -522,3 +657,20 @@ def test_production_mesh_under_a_fake_group(multi_pod, world, shape, names):
             p.kill()
     assert p.exitcode == 0
     assert got == (shape, names, world)
+
+
+def test_full_width_qwen3_14b_decode_on_256_fake_ranks():
+    """Full-width qwen3-14b (40 query and 8 KV heads, which the 16-wide
+    model axis does not divide) runs its sharded decode step at
+    decode_32k on the 16 x 16 mesh of a fake 256-rank group, every
+    tensor fake (``launch.dryrun.lower_cell``): q, k and v are gathered
+    whole before their head split in each of the 40 layers."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    r = dryrun.lower_cell("qwen3-14b", "decode_32k", device="cpu",
+                          verbose=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "ok" and r["chips"] == 256
+    assert r["collective_counts"]["all-gather"] >= 3 * 40

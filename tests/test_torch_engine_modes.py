@@ -172,38 +172,38 @@ def test_unknown_mode_names_raise():
 def test_lockstep_ring_steps_match_the_reference():
     """The reference's lockstep ring steps (``make_prefill_step``: whole
     prompts into a fresh ring from column 0; ``make_serve_step``: decode
-    at one position for every row) against the port's ``forward`` on its
-    ring at the same offsets (an int ``cache_index``, as the per-row
-    path writes): the greedy ids are equal, and the ring's written K/V
-    agree within bf16 rounding (1e-2 of their scale)."""
+    at one position for every row) against the port's: the greedy ids
+    are equal, and the ring's written K/V agree within bf16 rounding
+    (1e-2 of their scale)."""
     import jax.numpy as jnp
 
     from repro.configs.base import RunConfig, ShapeConfig
     from repro.launch import steps as j_steps
     from repro.models.model import init_cache as j_init_cache
-    from repro_torch.models.model import forward, init_cache
-
-    def greedy(logits):
-        return torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
+    from repro_torch.configs.base import RunConfig as TRunConfig
+    from repro_torch.configs.base import ShapeConfig as TShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_cache
 
     jcfg, raw = _raw("qwen1.5-0.5b", 1)
     cfg = smoke_config("qwen1.5-0.5b").scaled(**WIDE)
     params = params_from_numpy(jax.tree.map(np.asarray, raw), "cpu")
     run = RunConfig(arch=jcfg, shape=ShapeConfig("s", 32, 2, "decode"))
+    trun = TRunConfig(arch=cfg, shape=TShapeConfig("s", 32, 2, "decode"))
     toks = np.random.default_rng(3).integers(0, 256, size=(2, 9))
     jcache = j_init_cache(jcfg, 2, 32)
     cache = init_cache(cfg, 2, 32, device="cpu")
     jtok, jcache = j_steps.make_prefill_step(jcfg, run)(
         raw, {"tokens": jnp.asarray(toks, jnp.int32)}, jcache)
-    tok = greedy(forward(params, torch.from_numpy(toks), cfg, cache=cache,
-                         cache_index=0))
+    tok, cache = steps.make_prefill_step(cfg, trun)(
+        params, {"tokens": torch.from_numpy(toks).to(torch.int32)}, cache)
+    assert tok.dtype == torch.int32
     assert tok.tolist() == np.asarray(jtok).tolist()
     for pos in (9, 10):
         jtok, jcache = j_steps.make_serve_step(jcfg, run)(
             raw, jtok[:, None], jcache, jnp.int32(pos))
-        tok = greedy(forward(params, tok[:, None], cfg,
-                             positions=torch.full((2, 1), pos), cache=cache,
-                             cache_index=pos))
+        tok, cache = steps.make_serve_step(cfg, trun)(
+            params, tok[:, None], cache, torch.tensor(pos, dtype=torch.int32))
         assert tok.tolist() == np.asarray(jtok).tolist()
     for jl, tl in zip(jcache["layers"], cache["layers"]):
         np.testing.assert_array_equal(tl["pos"].numpy(), np.asarray(jl["pos"]))

@@ -189,3 +189,43 @@ def test_slice_modules_need_no_jax_triton_or_process_group():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"
+
+
+_DRYRUN_PROBE = r"""
+import os, sys
+for name in ("jax", "repro", "benchmarks", "ml_dtypes", "triton"):
+    sys.modules[name] = None    # any import of these now raises
+env = dict(os.environ)
+import torch.distributed as dist
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.configs import SHAPES
+from repro_torch.data import make_batch_specs
+from repro_torch.models.spec import param_count, shape_dtype_from_spec
+from repro_torch.launch.steps import input_specs, make_serve_step
+assert dict(os.environ) == env, "an import set an environment variable"
+assert not dist.is_initialized()
+r = dryrun.lower_cell("qwen3-14b", "long_500k", device="cpu")
+assert r["status"] == "skipped"
+with dryrun.fake_world(8):
+    assert dist.get_world_size() == 8
+assert not dist.is_initialized()
+print(len(SHAPES), hlo_analysis.PEAK_FLOPS)
+"""
+
+
+def test_dryrun_modules_need_no_jax_and_set_nothing_at_import():
+    """``launch.dryrun`` and ``launch.hlo_analysis`` (and what they need:
+    ``configs.SHAPES``, ``data.make_batch_specs``, ``models.spec``'s
+    counts, ``launch.steps.input_specs``) import with ``jax``, ``repro``,
+    ``benchmarks``, ``ml_dtypes`` and ``triton`` blocked, set no
+    environment variable (the reference's dry-run sets ``XLA_FLAGS`` at
+    import) and start no process group; ``fake_world`` makes one and
+    destroys it."""
+    for rel in ("launch/dryrun.py", "launch/hlo_analysis.py"):
+        assert (PORT / rel) in _sources()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-2:] == ["4", "989000000000000.0"]

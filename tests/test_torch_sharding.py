@@ -197,6 +197,7 @@ def meshes():
 
 def test_placements_of_specs(meshes):
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     mesh, pod = meshes
     R = Replicate()
@@ -210,15 +211,19 @@ def test_placements_of_specs(meshes):
     # batch over (pod, data): the mesh's own order
     assert sh.placements(P(("pod", "data"), None), pod).placements == (
         Shard(0), Shard(0), R)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        sh.placements(P(("model", "data")), mesh)
+    # two axes in the other order: the later mesh dim major, the earlier
+    # a strided shard of its blocks
+    assert sh.placements(P(("model", "data")), mesh).placements == (
+        _StridedShard(0, split_factor=2), Shard(0))
+    with pytest.raises(NotImplementedError, match="out of the mesh's"):
+        sh.placements(P(("model", "data", "pod")), pod)
     with pytest.raises(ValueError, match="shards two dims"):
         sh.placements(P("model", "model"), mesh)
-    # the multi-pod FSDP embed dim, ("data", "pod"), is the dry-run's
+    # the multi-pod FSDP embed dim, ("data", "pod"): data-major
     fm = FakeMesh(pod=2, data=16, model=16)
     spec = sh.logical_to_mesh(("embed", "ff"), (4096, 16384), fm)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        sh.placements(spec, pod)
+    assert sh.placements(spec, pod).placements == (
+        _StridedShard(0, split_factor=2), Shard(0), Shard(1))
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -246,3 +251,38 @@ def test_placements_of_a_parameter_tree(meshes, quant):
         assert wq.scale.placements == (Replicate(), Shard(1))
     else:
         assert wq.placements == (Shard(0), Shard(1))
+
+
+def test_multi_pod_fsdp_blocks_are_data_major():
+    """The FSDP dim ``P(("data", "pod"))`` on the (2, 16, 16) (pod, data,
+    model) mesh (a mesh of 512 ranks made without a process group; no
+    collective runs): the block of every rank, by
+    ``compute_local_shape_and_global_offset``'s computation at its mesh
+    coordinate and by ``distribute_tensor``'s own local chunk, is the
+    one the reference's NamedSharding gives it, data-major and
+    pod-minor: block ``data * 2 + pod`` of 32."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset,
+    )
+
+    rows = 5120  # qwen3-14b's d_model: 160 rows a block
+    mesh = DeviceMesh("cpu", torch.arange(512).reshape(2, 16, 16),
+                      mesh_dim_names=("pod", "data", "model"),
+                      _init_backend=False)
+    lay = sh.placements(P(("data", "pod"), None), mesh)
+    whole = torch.arange(rows)[:, None].expand(rows, 2).contiguous()
+    for pod in range(2):
+        for data in range(16):
+            coord = [pod, data, 5]
+            shape, offset = _compute_local_shape_and_global_offset(
+                (rows, 2), mesh.shape, coord, lay.placements)
+            block = (data * 2 + pod) * (rows // 32)
+            assert (shape, offset) == ((rows // 32, 2), (block, 0)), (
+                pod, data)
+            mesh.get_coordinate = lambda c=coord: c
+            local = distribute_tensor(whole, mesh, lay.placements,
+                                      src_data_rank=None).to_local()
+            assert torch.equal(local[:, 0], torch.arange(
+                block, block + rows // 32)), (pod, data)
