@@ -269,6 +269,23 @@ Phases, any failure exits non-zero:
       calls on DTensors (each rank's own packed words through the matmul
       kernels) give the ids of the same steps on plain tensors, with
       both matmul launchers counted in the DTensor run.
+  (n) the port's lint and the example twins: (n1)
+      ``tools/samd_lint_torch.py src/repro_torch --certify
+      BENCH_serving.json`` exits 0; each twin's ``main`` on the card,
+      launch counts reset just before it: (n2) ``quickstart_torch``
+      (sections 1-3 printed as on the CPU, section 4's errors within 1e-3
+      of the CPU's, one split-K launch a bit width), (n3)
+      ``serve_quantized_torch`` at 4 bits (split-K, tile, decode
+      attention; greedy tokens against the same run under the plain
+      versions) and with ``--speculative 2`` (split-K, tile, ring fold,
+      verify; against the first run), every request untruncated; (n4)
+      ``train_e2e_torch --big`` (42.1M parameters, 200 steps): the loss
+      falls, the packed forwards at 8, 4, 3 and 2 bits launch the tile
+      launcher, and the last checkpoint restores onto the card
+      bit-identical. In every run on the card, the first matmul launch at
+      each (launcher, M, K, N, bits) the path gives is held, on the
+      inputs the path gave it, against its plain version (BF16_TOL).
+      Each prints its seconds.
 
 The last three lines are the card's name and power limit from nvidia-smi,
 one JSON object with every launcher's numbers, and the result line
@@ -3886,6 +3903,229 @@ def lockstep_on_dtensors(dev):
     return out
 
 
+# -- (n) the port's lint and the example twins --------------------------------
+
+LINT_CMD = ("tools/samd_lint_torch.py", "src/repro_torch", "--certify",
+            "BENCH_serving.json")
+SERVE_EXAMPLE_RUNS = (("4-bit", [], {SPLITK, TILE, DECODE}),
+                      ("4-bit, --speculative 2", ["--speculative", "2"],
+                       {SPLITK, TILE, RING, VERIFY}))
+QUICKSTART_ERR_TOL = 1e-3
+TRAIN_E2E_ARGV = ["--big"]  # the reference's larger config, 42.1M params
+
+
+@contextlib.contextmanager
+def first_matmul_calls():
+    """Wraps ``ops.samd_matmul`` (the one way into the matmul launchers)
+    and yields (calls, launches): for each (launcher, M, K, N, bits) the
+    path gives it, copies of the first call's inputs and output; and the
+    calls made by launcher."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import samd_matmul as mm
+
+    calls, launches, inner = {}, collections.Counter(), ops.samd_matmul
+
+    def recording(x, packed, scale, k, cfg, *, signed=True):
+        out = inner(x, packed, scale, k, cfg, signed=signed)
+        if x.is_cuda:
+            m = x.numel() // k
+            key = (mm.launcher_for(m), m, k, out.shape[-1], cfg.bits)
+            launches[key[0]] += 1
+            if key not in calls:
+                calls[key] = (x.reshape(m, k).clone(), packed, scale, k,
+                              cfg, signed, out.reshape(m, -1).clone())
+        return out
+
+    ops.samd_matmul = recording
+    try:
+        yield calls, launches
+    finally:
+        ops.samd_matmul = inner
+
+
+def hold_matmuls(tag, calls):
+    """Each call of ``first_matmul_calls`` against ``samd_matmul_plain``
+    on the same inputs, within BF16_TOL; returns the max |kernel - plain|
+    by launcher."""
+    from repro_torch.kernels import samd_matmul as mm
+
+    errs, by_key = {}, {}
+    for key, (x, packed, scale, k, cfg, signed, out) in calls.items():
+        want = mm.samd_matmul_plain(x, packed, scale, k, cfg, signed=signed)
+        try:
+            by_key[str(key)] = max_err(out, want, BF16_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"({tag}) samd_matmul at {key}: {e}")
+        errs[key[0]] = max(errs.get(key[0], 0.0), by_key[str(key)])
+    log(f"  ({tag}) samd_matmul on the path's own inputs, max |kernel - "
+        "plain| by (launcher, M, K, N, bits): " + json.dumps(by_key))
+    return errs
+
+
+def example(main, argv, dev, reset=True):
+    """``main(argv, device=dev)`` of an example twin with its printed
+    lines captured; returns (its result, the lines, seconds, the launch
+    counts after it: reset just before it unless ``reset`` is false, and
+    on the card with the launch counts reset the max |kernel - plain| by
+    matmul launcher of ``hold_matmuls``, else {})."""
+    import io
+
+    from repro_torch.kernels import ops
+
+    buf = io.StringIO()
+    if reset:
+        ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with first_matmul_calls() as (calls, launches), \
+            contextlib.redirect_stdout(buf):
+        result = main(argv, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    counts, lines = ops.launch_counts(), buf.getvalue().splitlines()
+    if not (reset and dev.type == "cuda"):
+        return result, lines, seconds, counts, {}
+    tag = f"{main.__module__} {' '.join(argv or [])}".strip()
+    for fn, n in launches.items():
+        if counts[fn] != n:
+            raise AssertionError(f"({tag}) {counts[fn]} {fn} launches, "
+                                 f"{n} calls through ops.samd_matmul")
+    return result, lines, seconds, counts, hold_matmuls(tag, calls)
+
+
+def launched(tag, counts, expect):
+    """Raise unless every launcher of ``expect`` launched and no other."""
+    on = {fn for fn, n in counts.items() if n}
+    if on != set(expect):
+        raise AssertionError(f"({tag}) launched {sorted(on)}, expected "
+                             f"{sorted(expect)}: {counts}")
+
+
+def run_examples(dev, card):
+    """Phase (n): (n1) ``tools/samd_lint_torch.py`` over the port with
+    ``--certify`` must exit 0; then each example twin's ``main`` on the
+    card, launch counts reset just before each: (n2) quickstart, its
+    sections 1-3 printed as on the CPU, section 4's errors within
+    QUICKSTART_ERR_TOL of the CPU's and its split-K launcher launched
+    once a bit width; (n3) serve_quantized at 4 bits and with
+    ``--speculative 2``, every request finished untruncated, the path's
+    launchers launched, the greedy tokens against the same example run
+    under ``plain_versions()`` (or, speculative, against the first run)
+    by ``check_greedy``; (n4) train_e2e ``--big`` (the reference's larger
+    configuration, 42.1M parameters, 200 steps), the loss falling, the
+    packed forwards through the tile launcher, and the last checkpoint
+    restored by ``CheckpointManager.restore`` with no device named (the
+    card) bit-identical to the final parameters and AdamW state. Returns
+    the summary, each run's launch counts and the max |kernel - plain| of
+    the matmul launchers over every run's own inputs."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.tree import named_leaves
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    import serve_quantized_torch
+    import train_e2e_torch
+
+    out, counts, errs = {}, {}, {}
+
+    def held(run_errs):
+        for fn, e in run_errs.items():
+            errs[fn] = max(errs.get(fn, 0.0), e)
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *LINT_CMD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    out["n1_lint"] = dict(
+        rc=res.returncode, seconds=round(time.perf_counter() - t0, 1),
+        stderr=[x for x in res.stderr.splitlines()
+                if x.startswith(("samd-lint-torch", "note: certify"))])
+    log("  (n1) " + json.dumps(out["n1_lint"]))
+    if res.returncode != 0:
+        raise AssertionError(f"(n1) the lint failed:\n{res.stdout}\n"
+                             f"{res.stderr}")
+
+    got, lines, sec, c, e = example(quickstart_torch.main, None, dev)
+    held(e)
+    want, cpu_lines, _, _, _ = example(quickstart_torch.main, None,
+                                       torch.device("cpu"))
+    for line in lines:
+        log(f"  (n2) | {line}")
+    launched("n2", c, {SPLITK})
+    if c[SPLITK] != len(got):
+        raise AssertionError(f"(n2) {c[SPLITK]} split-K launches for "
+                             f"{len(got)} bit widths")
+    if lines[:12] != cpu_lines[:12]:
+        raise AssertionError("(n2) sections 1-3 differ from the CPU's")
+    for bits, r in got.items():
+        if (r["ratio"] != want[bits]["ratio"] or abs(
+                r["rel_err"] - want[bits]["rel_err"]) > QUICKSTART_ERR_TOL):
+            raise AssertionError(f"(n2) {bits}-bit: {r} against the CPU's "
+                                 f"{want[bits]}")
+    counts["quickstart"] = c
+    out["n2_quickstart"] = dict(seconds=round(sec, 2), launches=c,
+                                results=got, cpu=want)
+    log("  (n2) " + json.dumps(out["n2_quickstart"]))
+
+    first = None
+    for label, argv, expect in SERVE_EXAMPLE_RUNS:
+        eng, lines, sec, c, e = example(serve_quantized_torch.main, argv,
+                                        dev)
+        held(e)
+        for line in lines:
+            log(f"  (n3) | {line}")
+        launched(f"n3 {label}", c, expect)
+        if len(eng.finished) != 6 or any(
+                r.truncated or r.error or not r.generated
+                for r in eng.finished):
+            raise AssertionError(f"(n3) {label}: a request fell short")
+        if first is None:
+            with plain_versions():
+                plain, _, _, _, _ = example(serve_quantized_torch.main,
+                                            argv, dev, reset=False)
+            ident = check_greedy(eng, plain.finished, dev,
+                                 against="the example under plain versions")
+            first = eng
+        else:
+            ident = check_greedy(eng, first.finished, dev,
+                                 against="the first run's greedy decode")
+        counts[f"serve {label}"] = c
+        out[f"n3_serve {label}"] = dict(
+            seconds=round(sec, 2), launches=c, stats=dict(eng.stats),
+            greedy_identical=ident, requests=len(eng.finished))
+        log(f"  (n3) {label}: " + json.dumps(out[f"n3_serve {label}"]))
+
+    res, lines, sec, c, e = example(train_e2e_torch.main, TRAIN_E2E_ARGV,
+                                    dev)
+    held(e)
+    for line in lines:
+        log(f"  (n4) | {line}")
+    losses = [res["losses"][k] for k in sorted(res["losses"])]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(n4) the loss did not fall: {losses}")
+    launched("n4", c, {TILE})
+    like = {"params": res["params"], "opt": res["opt"]}
+    t0 = time.perf_counter()
+    tree, at, _ = CheckpointManager(res["ckdir"]).restore(like)
+    restore_s = time.perf_counter() - t0
+    for (name, a), (_, b) in zip(named_leaves(tree), named_leaves(like),
+                                 strict=True):
+        if not (a.device == b.device and a.dtype == b.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"(n4) {name} did not restore")
+    shutil.rmtree(res["ckdir"], ignore_errors=True)
+    counts["train_e2e"] = c
+    out["n4_train_e2e"] = dict(
+        seconds=round(sec, 1), n_params=res["n_params"], losses=losses,
+        restored_step=at, restore_s=round(restore_s, 2),
+        fp_bytes=res["fp_bytes"], packed_bytes=res["packed_bytes"],
+        agreement=res["agreement"], launches=c, card=card)
+    log("  (n4) " + json.dumps(out["n4_train_e2e"]))
+    out["matmul_err"] = errs
+    return out, counts, errs
+
+
 def kernel_entry(name, source, replaces, launches, err, t, shape):
     """One launcher's object in the kernels line; ``t`` is its
     ``timing_row``."""
@@ -4068,6 +4308,7 @@ def main() -> int:
             "library_ms are device times"))
     log("(d') the speculative launchers at runs A and B's shapes")
     # each entry's max_abs_err is (b')'s at that run's own shape
+    spec_t = {}  # run -> (ring fold, verify) timing rows, for (n) too
     for key, fmt, r in SPEC_RUNS:
         eng, _, counts = runs[key]
         assert eng.speculative == r and (eng._kv_bits == 8) == (fmt == "int8")
@@ -4078,7 +4319,9 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:294", counts[RING],
             err_ring[fmt, r, 1], t, f"draft decode B=8 H=Hkv=16 dh=64 ps=16 "
             f"n_pp=32, pool to pos-1 + ring R={r}, per layer; device times"))
-        t = time_verify(eng, dev, timer, gen, f"run {key}, {fmt} KV", old_pa)
+        spec_t[key] = (t, time_verify(eng, dev, timer, gen,
+                                      f"run {key}, {fmt} KV", old_pa))
+        t = spec_t[key][1]
         kernels.append(kernel_entry(
             f"paged_verify_attention (run {key}, {fmt} KV)", PA_SOURCE,
             "src/repro/kernels/paged_attention.py:584", counts[VERIFY],
@@ -4241,6 +4484,50 @@ def main() -> int:
         err_mm[4, "temporary", True, 1024], prefill_t,
         f"(m5): one prefill of {SERVE['max_batch']} x {LOCKSTEP_PROMPT} "
         "rows; numbers of the M=1024 row"))
+    log(f"(n) the port's lint and the example twins (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples, ex_counts, ex_err = run_examples(dev, card)
+    examples["phase_s"] = round(time.perf_counter() - t0, 1)
+    serve_c = [c for key, c in ex_counts.items() if key.startswith("serve")]
+    spec_c = ex_counts["serve 4-bit, --speculative 2"]
+    kernels.append(kernel_entry(
+        "samd_matmul split-K (examples)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123",
+        ex_counts["quickstart"][SPLITK] + sum(c[SPLITK] for c in serve_c),
+        ex_err[SPLITK], decode_t["bf16"],
+        "(n2) quickstart M=4 at 8/4/2 bits, (n3) serve_quantized decode "
+        "M=3 and verify M=9, d 256; max_abs_err over every (M, K, N, "
+        "bits) of these runs on their own inputs, times of (c)'s bf16 KV "
+        "decode row"))
+    kernels.append(kernel_entry(
+        "samd_matmul tile (examples)", MM_SOURCE,
+        "src/repro/kernels/samd_matmul.py:123",
+        sum(c[TILE] for c in serve_c) + ex_counts["train_e2e"][TILE],
+        ex_err[TILE], prefill_t,
+        "(n3) serve_quantized prefills (M=96 and 48, d 256), (n4) "
+        "train_e2e --big's packed forwards (M=1024, K and N 512 or 1408, "
+        "8/4/3/2 bits); max_abs_err "
+        "over every (M, K, N, bits) of these runs on their own inputs, "
+        "times of the M=1024 row"))
+    kernels.append(kernel_entry(
+        "paged_decode_attention (serve_quantized example)", PA_SOURCE,
+        "src/repro/kernels/paged_attention.py:294",
+        ex_counts["serve 4-bit"][DECODE], err_pa["bf16", 1], attn_t["bf16"],
+        "(n3) B=3 H=Hkv=4 dh=64 ps=16; numbers of (c)'s bf16 KV decode "
+        "row"))
+    kernels.append(kernel_entry(
+        "paged_decode_ring_attention (serve_quantized --speculative 2)",
+        PA_SOURCE, "src/repro/kernels/paged_attention.py:294", spec_c[RING],
+        err_ring["bf16", 2, 1], spec_t["A"][0],
+        "(n3) B=3 H=Hkv=4 dh=64, ring R=2; numbers of run A's bf16 ring "
+        "row"))
+    kernels.append(kernel_entry(
+        "paged_verify_attention (serve_quantized --speculative 2)",
+        PA_SOURCE, "src/repro/kernels/paged_attention.py:584",
+        spec_c[VERIFY], err_verify["bf16", 3, 1], spec_t["A"][1],
+        "(n3) B=3 S=3 H=Hkv=4 dh=64; numbers of run A's bf16 verify row"))
     log("serving: " + json.dumps([runs[k][1] for k in runs]))
     log("front door: " + json.dumps(front))
     log("modes: " + json.dumps({m: sm for m, (sm, _) in modes.items()}))
@@ -4251,6 +4538,9 @@ def main() -> int:
     log("64-bit words: " + json.dumps(words64))
     log("distribution: " + json.dumps(distributed))
     log("dry-run: " + json.dumps(dry))
+    log("examples: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "results"}
+         if isinstance(v, dict) else v for k, v in examples.items()}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

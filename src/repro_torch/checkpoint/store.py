@@ -9,11 +9,12 @@ same-width unsigned views (written and read through torch, which has the
 types) with their true dtype under ``dtypes``.
 
 A tree passed to ``save_checkpoint`` holds torch tensors (any device;
-DTensors gathered and written whole by rank 0) or numpy arrays; ``load_checkpoint`` gives torch
-tensors on ``device``, or DTensors on the placements it is given, in the
-structure of ``like``. The reference's layout (stacked ``blocks``
-for a scan-over-layers config) is the caller's to make:
-``models.convert.reference_layout``.
+DTensors gathered and written whole by rank 0) or numpy arrays;
+``load_checkpoint`` gives torch tensors on ``device`` (the card unless
+the caller names another, as every entry point of the package), or
+DTensors on the placements it is given, in the structure of ``like``.
+The reference's layout (stacked ``blocks`` for a scan-over-layers
+config) is the caller's to make: ``models.convert.reference_layout``.
 
 Async: ``CheckpointManager.save`` copies the tree to host memory at once
 and writes the files on a background thread, so the training loop waits
@@ -106,15 +107,30 @@ def _write(path: str, arrays, step: int, meta: dict | None):
     os.rename(tmp, path)
 
 
-def load_checkpoint(path: str, like: Any, device="cpu",
+def _target(device) -> torch.device:
+    """``device`` as a torch device; raises at once when it is a CUDA
+    device and there is none, rather than after reading every file."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"cannot restore onto {device}: no CUDA device is available "
+            "(pass device=\"cpu\" to restore onto the CPU)")
+    return device
+
+
+def load_checkpoint(path: str, like: Any, device="cuda",
                     shardings: Any | None = None):
     """Restore into the structure of ``like`` (only its structure and
     leaf names are read). Returns (tree of tensors on ``device``, step,
-    meta). With ``shardings``, a tree of ``distributed.sharding.Layout``
-    of ``like``'s structure (``sharding.placements(...)``), each leaf is
-    instead distributed onto its mesh and placements, whatever layout it
-    was saved from: the elastic-resize path. Every rank of the meshes
-    calls it."""
+    meta); ``device`` defaults to the card, and a machine without one
+    raises unless the caller names the CPU. With ``shardings``, a tree of
+    ``distributed.sharding.Layout`` of ``like``'s structure
+    (``sharding.placements(...)``), each leaf is instead distributed onto
+    its mesh and placements, whatever layout it was saved from: the
+    elastic-resize path (``device`` is not read). Every rank of the
+    meshes calls it."""
+    if shardings is None:
+        device = _target(device)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dtypes = manifest.get("dtypes", {})
@@ -198,7 +214,10 @@ class CheckpointManager:
         )
         return os.path.join(self.dir, ckpts[-1]) if ckpts else None
 
-    def restore(self, like: Any, device="cpu"):
+    def restore(self, like: Any, device="cuda"):
+        """``load_checkpoint`` of the newest complete checkpoint onto
+        ``device`` (the card unless named), or None when there is none."""
+        device = _target(device)
         path = self.latest()
         if path is None:
             return None

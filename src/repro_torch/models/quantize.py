@@ -10,6 +10,7 @@ from repro_torch.models.layers import QuantizedTensor
 from repro_torch.models.spec import TensorSpec, map_specs
 from repro_torch.quant.config import QuantConfig
 from repro_torch.quant.packing import pack_weights
+from repro_torch.tree import tree_leaves
 
 # don't bother packing tiny tensors (norms, biases)
 _MIN_QUANT_SIZE = 1 << 16
@@ -72,3 +73,16 @@ def quantized_spec_tree(template, qcfg: QuantConfig):
             tuple(spec.shape), spec.quant_axis, qcfg)
 
     return map_specs(visit, template)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a parameter tree's tensors, a packed weight counted as its
+    words and scales: the sum the reference takes over
+    ``jax.tree.leaves``, whose leaves of a ``QuantizedTensor`` are those
+    two."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        parts = ((leaf.packed, leaf.scale)
+                 if isinstance(leaf, QuantizedTensor) else (leaf,))
+        total += sum(t.numel() * t.element_size() for t in parts)
+    return total

@@ -83,7 +83,7 @@ def test_save_load_roundtrip(tmp_path):
     t = _tree()
     path = os.path.join(tmp_path, "ck")
     save_checkpoint(path, t, step=7, meta={"arch": "x"})
-    t2, step, meta = load_checkpoint(path, t)
+    t2, step, meta = load_checkpoint(path, t, device="cpu")
     assert step == 7 and meta["arch"] == "x"
     assert isinstance(t2["opt"], AdamWState)
     _assert_same(t2, t)
@@ -111,7 +111,7 @@ def test_manager_async_then_wait(tmp_path):
     t["a"].add_(1.0)  # the save copied the tree before returning
     mgr.wait()
     assert mgr._thread is None and mgr.latest() is not None
-    restored, step, _ = mgr.restore(_tree())
+    restored, step, _ = mgr.restore(_tree(), device="cpu")
     assert step == 5
     _assert_same(restored, _tree())
 
@@ -126,6 +126,28 @@ def test_crash_leaves_previous_checkpoint(tmp_path):
     # nor does a directory whose manifest was never written
     os.makedirs(os.path.join(tmp_path, "ckpt_00000003"))
     assert mgr.latest().endswith("ckpt_00000001")
+
+
+def test_restore_defaults_to_the_card(tmp_path, monkeypatch):
+    """``load_checkpoint`` and ``CheckpointManager.restore`` called
+    without a device restore onto CUDA, as every entry point of the
+    package does: with no card they raise and never hand back CPU
+    tensors. Naming the CPU restores there."""
+    import inspect
+
+    for fn in (load_checkpoint, CheckpointManager.restore):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, _tree(), blocking=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(mgr.latest(), _tree())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore(_tree())
+    tree, step, _ = mgr.restore(_tree(), device="cpu")
+    assert step == 3
+    assert {t.device.type for _, t in named_leaves(tree)} == {"cpu"}
+    _assert_same(tree, _tree())
 
 
 def _stacked_models():
@@ -190,7 +212,7 @@ def test_port_restores_a_reference_checkpoint(tmp_path):
             "opt": AdamWState(torch.zeros((), dtype=torch.int32),
                               reference_layout(params, cfg),
                               reference_layout(params, cfg))}
-    got, step, meta = load_checkpoint(path, like)
+    got, step, meta = load_checkpoint(path, like, device="cpu")
     assert step == 9 and meta == {"arch": jcfg.name}
     want = dict(named_leaves(jtree))
     for name, leaf in named_leaves(got):

@@ -1,7 +1,8 @@
-"""Import boundary of the port: repro_torch and chip_smoke.py import
-neither JAX nor anything of the reference package ``repro`` or of its
-``benchmarks`` package, and the kernel modules import (and their plain
-versions run) with no nvcc."""
+"""Import boundary of the port: repro_torch, chip_smoke.py, the port's
+lint (tools/samd_lint_torch.py) and the example twins
+(examples/*_torch.py) import neither JAX nor anything of the reference
+package ``repro`` or of its ``benchmarks`` package, and the kernel
+modules import (and their plain versions run) with no nvcc."""
 import os
 import pathlib
 import re
@@ -42,7 +43,9 @@ print(len(names))
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tools" / "samd_lint_torch.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_port_sources_have_no_forbidden_imports():
