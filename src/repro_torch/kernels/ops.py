@@ -4,13 +4,19 @@ CPU tensor runs its plain PyTorch version.
 The choice follows the device of the tensor alone. There is no fallback:
 on a CUDA tensor a kernel that cannot be built or launched raises, and a
 tensor on any other device raises.
+
+With ``repro_torch.tracing`` on, ``samd_matmul`` and
+``paged_decode_attention`` count each call under its launcher and shape
+(on the CPU, the launcher a card would take).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.analysis.contracts import (
     assert_safe,
     check_conv2d_config,
@@ -70,6 +76,10 @@ def samd_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         # as the reference's kernel: per-channel scales only (a grouped
         # weight goes through quant.packing.qmatmul's dequantize route)
         raise NotImplementedError("samd_matmul supports per-channel scales")
+    if tracing.on:
+        m = math.prod(x.shape[:-1])
+        tracing.count((_mm.launcher_for(m), m, int(k), int(packed.shape[1]),
+                       cfg.values_per_word))
     if _on_cuda(x):
         return _mm.samd_matmul_cuda(x, packed, scale, k, cfg, signed=signed)
     lead = x.shape[:-1]
@@ -86,6 +96,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, q_pos, *,
     ``extra_k``/``extra_v`` [B, R, Hkv, dh] with ``extra_pos`` [B, R]
     (-1 = unwritten) fold the speculative draft's ring into the same
     softmax after the pages; ``q_pos`` then bounds the pool read."""
+    if tracing.on:
+        # the rows, keys and pages it reads are the enclosing decode
+        # span's (the pool's int32 words hold four int8 values)
+        tracing.count((
+            "paged_decode_attention_launch" if extra_k is None
+            else "paged_decode_ring_attention_launch", tracing.current(),
+            q.shape[1], k_pages.shape[2], q.shape[2],
+            1 if k_pages.dtype == torch.int32 else k_pages.element_size()))
     fn = (_pa.paged_decode_attention_cuda if _on_cuda(q)
           else _pa.paged_decode_attention_plain)
     return fn(q, k_pages, v_pages, page_table, q_pos,

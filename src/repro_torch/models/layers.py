@@ -18,6 +18,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed.dtensor import (
     fsdp_gathered, grad_placed, is_dtensor, linear_input, merge_heads,
     on_local_blocks, on_local_columns, on_local_words, whole_heads,
@@ -61,6 +62,11 @@ def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
     shape."""
     if not isinstance(w, QuantizedTensor):
         return w
+    with tracing.span("model.dequantize", device=True):
+        return _dequantize(w, dtype)
+
+
+def _dequantize(w, dtype) -> torch.Tensor:
     k = w.k
     rest = tuple(s for i, s in enumerate(w.orig_shape) if i != w.axis)
     if is_dtensor(w.packed):  # each rank's own columns, the words whole

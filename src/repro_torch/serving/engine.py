@@ -28,9 +28,16 @@ scheduling contract is the reference's:
   * ``max_queue`` bounds the queue (overflow is rejected with ``error``);
   * every request carries four stamps on the engine's ``clock``
     (``time.monotonic`` unless one is given): ``t_submit``, ``t_admit``,
-    ``t_first_token`` and ``t_retire``, the last two taken after the host
-    read of the tokens they time; ``serving/server.py`` derives TTFT,
-    TPOT and e2e from them;
+    ``t_first_token`` and ``t_retire``, the last three taken after the
+    host read of the tokens they time (``t_admit`` after the admitting
+    prefill's); ``serving/server.py`` derives TTFT, TPOT and e2e from
+    them;
+  * ``repro_torch.tracing``, when on, records the tick's phases as spans
+    (``engine.step``, ``.admit``, ``.prefill``, ``.grant_pages``,
+    ``.decode``, ``.sync``, ``.advance``) and each request's wait in the
+    queue (``request.queue``, submission to the start of the prefill
+    that admits it); ``stats`` counts the prompt tokens batched prefills
+    took against the rows x bucket they computed;
   * ``verify=True`` (default) certifies every (bits, K) the packed
     weights accumulate over, target and draft, with the lane-safety
     analysis before the engine serves: an unsafe quantization raises
@@ -82,6 +89,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.analysis import contracts
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import steps as steps_mod
@@ -109,7 +117,8 @@ class Request:
     resume_prompt: Optional[np.ndarray] = None
     # stamps on the engine's clock, None until the event happens:
     #   t_submit      ``submit`` (arrival at the engine)
-    #   t_admit       first admission (prefill handoff); kept on resume
+    #   t_admit       first admission, taken after the admitting prefill's
+    #                 host read of its first token; kept on resume
     #   t_first_token first generated token (prefill's sample)
     #   t_retire      retirement, any outcome (done/truncated/rejected)
     t_submit: Optional[float] = None
@@ -421,6 +430,8 @@ class ServingEngine:
         self.stats = {
             "decode_steps": 0,          # ragged decode invocations
             "prefill_calls": 0,         # batched prefill invocations
+            "prefill_tokens_real": 0,   # unshared prompt tokens they took
+            "prefill_tokens_computed": 0,  # their rows x bucket, padding in
             "per_row_prefill_calls": 0,  # per-row path: one a request
             "per_row_forward_calls": 0,  # per-row path: one a slot a tick
             "page_grants": 0,           # incremental mid-decode page allocs
@@ -661,10 +672,21 @@ class ServingEngine:
         return "ok", start
 
     def _admit(self):
+        if not self.queue:
+            return
+        with tracing.span("engine.admit") as sp:
+            taken = self._admit_batches()
+            if sp:
+                sp.set(requests=taken)
+
+    def _admit_batches(self) -> int:
+        """Bind and prefill queued requests while slots are free; returns
+        the requests taken."""
+        taken = 0
         while self.queue:
             free = [i for i, r in enumerate(self.slots) if r is None]
             if not free:
-                return
+                return taken
             batch: list[Request] = []
             batch_slots: list[int] = []
             batch_effs: list[np.ndarray] = []
@@ -697,7 +719,8 @@ class ServingEngine:
                 batch_effs.append(eff)
                 batch_starts.append(start)
             if not batch:
-                return
+                return taken
+            taken += len(batch)
             if self._batched_prefill:
                 self._prefill_batch(batch_slots, batch, batch_effs,
                                     batch_starts)
@@ -707,7 +730,8 @@ class ServingEngine:
                 for slot, req in zip(batch_slots, batch):
                     self._prefill_one(slot, req)
             if stalled:
-                return
+                return taken
+        return taken
 
     def _prefill_batch(self, slots: list[int], reqs: list[Request],
                        effs: list[np.ndarray], starts: list[int]):
@@ -739,22 +763,27 @@ class ServingEngine:
             route = np.full((nb, width), -1, np.int32)
             for row, slot in enumerate(slots):
                 route[row] = self.page_table[slot, :width]
-            tok0 = self._prefill_step(
-                self.params, tokens_t, lens_t,
-                self._to_device(starts_a.astype(np.int64)),
-                self._to_device(route), self._to_device(valid), self.cache,
-                self._gen, self.temperature,
-            )
+            args = (self.params, tokens_t, lens_t,
+                    self._to_device(starts_a.astype(np.int64)),
+                    self._to_device(route), self._to_device(valid),
+                    self.cache, self._gen, self.temperature)
         else:
             route = np.zeros(nb, np.int64)
             route[:len(slots)] = slots
-            tok0 = self._prefill_step(
-                self.params, tokens_t, lens_t, self._to_device(route),
-                self._to_device(valid), self.cache, self._gen,
-                self.temperature,
-            )
+            args = (self.params, tokens_t, lens_t, self._to_device(route),
+                    self._to_device(valid), self.cache, self._gen,
+                    self.temperature)
+        with tracing.span("engine.prefill", device=True) as sp:
+            tok0 = self._prefill_step(*args)
+        real = sum(lens)
         self.stats["prefill_calls"] += 1
-        tok0 = tok0.cpu().numpy()
+        self.stats["prefill_tokens_real"] += real
+        self.stats["prefill_tokens_computed"] += nb * lb
+        if sp:
+            self._trace_prefill(sp, reqs, rows=nb, bucket=lb, real=real,
+                                shared=sum(starts))
+        with tracing.span("engine.sync"):
+            tok0 = tok0.cpu().numpy()
         for row, (slot, req) in enumerate(zip(slots, reqs)):
             self._finish_admit(slot, req, effs[row], int(tok0[row]))
 
@@ -770,12 +799,28 @@ class ServingEngine:
             c[slot:slot + 1] = new
         row_cache = _row_views(self.cache, slot)
         tokens = self._to_device(eff.astype(np.int64))[None]
-        logits = forward(self.params, tokens, self.cfg, cache=row_cache,
-                         cache_index=0)
+        with tracing.span("engine.prefill", device=True) as sp:
+            logits = forward(self.params, tokens, self.cfg, cache=row_cache,
+                             cache_index=0)
         self.stats["per_row_prefill_calls"] += 1
-        tok0 = int(steps_mod.sample_tokens(logits[:, -1], self._gen,
-                                           self.temperature)[0])
+        if sp:
+            self._trace_prefill(sp, [req], rows=1, bucket=len(eff),
+                                real=len(eff), shared=0)
+        with tracing.span("engine.sync"):
+            tok0 = int(steps_mod.sample_tokens(logits[:, -1], self._gen,
+                                               self.temperature)[0])
         self._finish_admit(slot, req, eff, tok0)
+
+    @staticmethod
+    def _trace_prefill(sp, reqs: list, **attrs) -> None:
+        """A traced prefill's attributes, and for each request it admits
+        the first time its wait in the queue: a ``request.queue`` span
+        from its submission to the start of this prefill."""
+        sp.set(rids=[int(r.rid) for r in reqs], **attrs)
+        for r in reqs:
+            if r.t_admit is None and r.t_submit is not None:
+                tracing.record("request.queue", r.t_submit, sp.t0,
+                               parent=sp.id, rid=int(r.rid))
 
     def _finish_admit(self, slot: int, req: Request, eff: np.ndarray,
                       tok0: int):
@@ -902,7 +947,9 @@ class ServingEngine:
     def _grant_pages(self):
         """Before the tick's write at ``slot_pos[i]``, make sure the page
         covering it exists and is held by ``i`` alone (COW forks happen
-        at admission, so the cursor's page is never shared)."""
+        at admission, so the cursor's page is never shared). Returns the
+        pages granted."""
+        granted = 0
         for i in np.nonzero(self.active)[0]:
             if not self.active[i]:
                 continue  # preempted while serving an earlier grant
@@ -918,7 +965,9 @@ class ServingEngine:
                 if page is None:
                     continue
             self._bind_next_page(int(i), page)
+            granted += 1
         self._note_peak()
+        return granted
 
     def _spec_lens(self) -> np.ndarray:
         """Per-slot draft budgets for this tick, with lookahead grants:
@@ -992,11 +1041,20 @@ class ServingEngine:
         """One engine tick: admit, grant pages, ONE ragged decode step (or
         one speculative draft + verify), retire. Returns False when there
         was nothing to decode."""
+        with tracing.span("engine.step") as sp:
+            return self._step(sp)
+
+    def _step(self, sp) -> bool:
         self._admit()
+        if sp:
+            sp.set(active=int(self.active.sum()))
         if not self.active.any():
             return False
         if self.kv_mode == "paged":
-            self._grant_pages()
+            with tracing.span("engine.grant_pages") as gp:
+                granted = self._grant_pages()
+                if gp:
+                    gp.set(pages=granted)
             if not self.active.any():
                 return True  # progress: slots were preempted or retired
         if self.speculative:
@@ -1010,14 +1068,46 @@ class ServingEngine:
             ]
             if self.kv_mode == "paged":
                 args.append(self._to_device(self._active_table()))
-            next_ids = self._decode_step(*args, self._gen, self.temperature)
+            with tracing.span("engine.decode", device=True) as dp:
+                next_ids = self._decode_step(*args, self._gen,
+                                             self.temperature)
             self.stats["decode_steps"] += 1
-            next_ids = next_ids.cpu().numpy()  # the one host sync per tick
+            if dp:
+                dp.set(**self._decode_attrs(speculative=False))
+            with tracing.span("engine.sync"):
+                next_ids = next_ids.cpu().numpy()  # the one host sync per tick
         else:
             next_ids = self._decode_rows_reference()
-        for i in np.nonzero(self.active)[0]:
-            self._advance_slot(int(i), int(next_ids[i]))
+        with tracing.span("engine.advance") as ap:
+            retired = 0
+            for i in np.nonzero(self.active)[0]:
+                retired += self._advance_slot(int(i), int(next_ids[i]))
+            if ap:
+                ap.set(retired=retired)
         return True
+
+    def _decode_attrs(self, speculative: bool) -> dict:
+        """A traced decode step's attributes: its active rows, the keys
+        they attend to (each row's position + 1) and, paged, the distinct
+        pages they read and the page slots read, a page several rows read
+        counted once at the most slots any row reads of it."""
+        rows = np.nonzero(self.active)[0]
+        ctx = self.slot_pos[rows].astype(np.int64) + 1
+        attrs = {"rows": len(rows), "context_tokens": int(ctx.sum()),
+                 "speculative": speculative}
+        if self.kv_mode == "paged" and len(rows):
+            ps = self.page_size
+            blocks = -(-ctx // ps)
+            pages = np.concatenate([self.page_table[r, :n]
+                                    for r, n in zip(rows, blocks)])
+            slots = np.concatenate([np.minimum(ps, c - ps * np.arange(n))
+                                    for c, n in zip(ctx, blocks)])
+            order = np.lexsort((slots, pages))
+            pages, slots = pages[order], slots[order]
+            last = np.append(pages[1:] != pages[:-1], True)
+            attrs["pages"] = int(last.sum())
+            attrs["kv_slots"] = int(slots[last].sum())
+        return attrs
 
     def _step_speculative(self) -> bool:
         """One speculative tick: grant lookahead pages (``spec_len`` [B]
@@ -1028,31 +1118,44 @@ class ServingEngine:
         stopping where the slot retires. KV the verify wrote past the
         accepted run is overwritten by the next tick's window before any
         query reads it."""
-        spec_len = self._spec_lens()
+        with tracing.span("engine.grant_pages") as gp:
+            granted = self.stats["page_grants"]
+            spec_len = self._spec_lens()
+            if gp:
+                gp.set(pages=self.stats["page_grants"] - granted)
         tokens = self._to_device(self.slot_next[:, None].astype(np.int64))
         pos = self._to_device(self.slot_pos)
         table = self._to_device(self._active_table())
-        draft_tok, draft_lg = self._draft_step(
-            self._draft_params, tokens, self.cache, pos, table, self._gen,
-            self.temperature)
-        out, n_acc = self._verify_step(
-            self.params, tokens, draft_tok, draft_lg, self.cache, pos,
-            self._to_device(self.active), table, self._to_device(spec_len),
-            self._gen, self.temperature)
+        with tracing.span("engine.decode", device=True) as dp:
+            draft_tok, draft_lg = self._draft_step(
+                self._draft_params, tokens, self.cache, pos, table,
+                self._gen, self.temperature)
+            out, n_acc = self._verify_step(
+                self.params, tokens, draft_tok, draft_lg, self.cache, pos,
+                self._to_device(self.active), table,
+                self._to_device(spec_len), self._gen, self.temperature)
         self.stats["decode_steps"] += 1
         self.stats["spec_ticks"] += 1
-        out = out.cpu().numpy()  # the one host sync per tick
-        n_acc = n_acc.cpu().numpy()
-        for i in np.nonzero(self.active)[0]:
-            self.stats["draft_proposed"] += int(spec_len[i])
-            used = 0
-            for m in range(int(n_acc[i]) + 1):
-                used = m + 1
-                if self._advance_slot(int(i), int(out[i, m])):
-                    break
-            # drafts count as accepted only when they became output: a
-            # slot retiring mid-run discards the rest of its run
-            self.stats["draft_accepted"] += min(used, int(n_acc[i]))
+        if dp:
+            dp.set(**self._decode_attrs(speculative=True))
+        with tracing.span("engine.sync"):
+            out = out.cpu().numpy()  # the one host sync per tick
+            n_acc = n_acc.cpu().numpy()
+        with tracing.span("engine.advance") as ap:
+            retired = 0
+            for i in np.nonzero(self.active)[0]:
+                self.stats["draft_proposed"] += int(spec_len[i])
+                used = 0
+                for m in range(int(n_acc[i]) + 1):
+                    used = m + 1
+                    if self._advance_slot(int(i), int(out[i, m])):
+                        retired += 1
+                        break
+                # drafts count as accepted only when they became output:
+                # a slot retiring mid-run discards the rest of its run
+                self.stats["draft_accepted"] += min(used, int(n_acc[i]))
+            if ap:
+                ap.set(retired=retired)
         return True
 
     def _decode_rows_reference(self) -> np.ndarray:

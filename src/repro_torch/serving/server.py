@@ -32,7 +32,13 @@ deployment actually exposes:
   (arrival, admit, first token, retire); the server aggregates them
   into TTFT/TPOT/e2e histograms and renders a Prometheus-style text
   snapshot (``metrics_snapshot``) on top of the engine's ``.stats``
-  counters and page-pool gauges.
+  counters and page-pool gauges. For a stretch of spans, call
+  ``repro_torch.tracing.enable(server.clock)`` and later
+  ``tracing.collect()``: the tick (``server.tick``, ``server.publish``)
+  and the engine's phases under it, each request's wait in the queue,
+  each kernel launch counted by shape; given a profiler's events,
+  ``collect`` also puts the spans on the device trace's clock and the
+  device's idle time down to them.
 
 The engine tick itself runs via ``asyncio.to_thread`` by default
 (``step_in_thread=True``), as in the reference, so arrivals can be taken
@@ -70,6 +76,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.analytic_costs import cell_cost
 from repro_torch.serving import metrics as metrics_mod
@@ -164,11 +171,13 @@ class TokenStream:
         self._queue: asyncio.Queue = asyncio.Queue()
         self._pushed = 0
 
-    def _push_new(self) -> None:
+    def _push_new(self) -> int:
         gen = self.request.generated
+        n = len(gen) - self._pushed
         while self._pushed < len(gen):
             self._queue.put_nowait(gen[self._pushed])
             self._pushed += 1
+        return n
 
     def _finish(self) -> None:
         self._queue.put_nowait(_DONE)
@@ -378,29 +387,37 @@ class AsyncServer:
             free -= 1
         if not self._engine_busy():
             return False
-        if self.step_in_thread:
-            await asyncio.to_thread(eng.step)
-        else:
-            eng.step()
-        self._publish()
+        with tracing.span("server.tick") as sp:
+            if sp:
+                sp.set(waiting=len(self._waiting), free=free)
+            if self.step_in_thread:
+                await asyncio.to_thread(eng.step)
+            else:
+                eng.step()
+            with tracing.span("server.publish") as pp:
+                pushed = self._publish()
+                if pp:
+                    pp.set(tokens=pushed)
         return True
 
-    def _publish(self) -> None:
+    def _publish(self) -> int:
         """Push this tick's new tokens into their streams and finalize
-        retirements (runs on the event-loop thread)."""
+        retirements (runs on the event-loop thread). Returns the tokens
+        pushed."""
         eng = self.engine
+        pushed = 0
         for req in eng.slots:
             if req is not None:
                 stream = self._inflight.get(id(req))
                 if stream is not None:
-                    stream._push_new()
+                    pushed += stream._push_new()
         while self._finished_seen < len(eng.finished):
             req = eng.finished[self._finished_seen]
             self._finished_seen += 1
             stream = self._inflight.pop(id(req), None)
             if stream is None:
                 continue  # not front-door traffic (direct engine use)
-            stream._push_new()
+            pushed += stream._push_new()
             stream._finish()
             self.finished.append(req)
             if req.error is not None:
@@ -424,6 +441,7 @@ class AsyncServer:
                 and req.t_retire > stream.deadline_s
             ):
                 self.counters["deadline_missed"] += 1
+        return pushed
 
     # -- observability -----------------------------------------------------
     def metrics_snapshot(self) -> str:

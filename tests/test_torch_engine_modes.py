@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 from test_torch_serving import (  # noqa: E402
-    WIDE, _assert_greedy_parity, _raw, _serve, _workload,
+    WIDE, _assert_greedy_parity, _raw, _serve, _workload, shared_stats,
 )
 
 from repro.quant import QuantConfig as JQuantConfig  # noqa: E402
@@ -75,7 +75,7 @@ def _check(jeng, teng, work):
     want = _serve(jeng, JRequest, work)
     got = _serve(teng, Request, work)
     _assert_greedy_parity(jeng, want, got, work)
-    assert teng.stats == dict(jeng.stats)
+    assert shared_stats(teng, jeng) == dict(jeng.stats)
     assert (teng.kv_mode, teng.decode_mode, teng.paged_attn) == (
         jeng.kv_mode, jeng.decode_mode, jeng.paged_attn)
 

@@ -34,6 +34,7 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from test_torch_serving import LOGIT_TOL  # noqa: E402
 from test_torch_serving import _assert_greedy_parity  # noqa: E402
 from test_torch_serving import _pair, _port, _serve, _workload  # noqa: E402
+from test_torch_serving import shared_stats  # noqa: E402
 
 
 j_speculative_accept = j_steps.speculative_accept
@@ -69,10 +70,10 @@ def _serve_both(arch, work, kv_bits=None, monkeypatch=None, **kw):
         _assert_greedy_parity(jeng, want, got, work)
     else:
         _assert_engine_parity(jeng, seen, want, got, work)
-    keys = [k for k in teng.stats
+    port = shared_stats(teng, jeng)
+    keys = [k for k in port
             if want == got or not teng.speculative or k not in SPEC_STATS]
-    assert {k: teng.stats[k] for k in keys} == {
-        k: jeng.stats[k] for k in keys}
+    assert {k: port[k] for k in keys} == {k: jeng.stats[k] for k in keys}
     return jeng, teng
 
 

@@ -44,6 +44,20 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 LOGIT_TOL = 1e-2  # relative to the largest logit, as in test_torch_model
 WIDE = dict(d_model=256, head_dim=64, d_ff=512, vocab=256)
+# the port's counters the reference's engine does not keep: the prompt
+# tokens batched prefills took, and the rows x bucket they computed
+PORT_STATS = ("prefill_tokens_real", "prefill_tokens_computed")
+
+
+def shared_stats(teng, jeng) -> dict:
+    """The port's counters that the reference keeps too, after checking
+    that the port keeps those and ``PORT_STATS`` alone, and that a
+    prefill computed at least the tokens it took."""
+    st = teng.stats
+    assert set(st) == set(jeng.stats) | set(PORT_STATS)
+    assert 0 <= st["prefill_tokens_real"] <= st["prefill_tokens_computed"]
+    assert (st["prefill_tokens_computed"] > 0) == (st["prefill_calls"] > 0)
+    return {k: st[k] for k in jeng.stats}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -126,7 +140,7 @@ def test_greedy_serving_matches_jax_engine(arch, kv_bits):
     want = _serve(jeng, JRequest, work)
     got = _serve(teng, Request, work)
     _assert_greedy_parity(jeng, want, got, work)
-    assert teng.stats == {k: jeng.stats[k] for k in teng.stats}
+    assert shared_stats(teng, jeng) == dict(jeng.stats)
     assert teng.stats["prefill_calls"] > 1 and teng.stats["page_grants"] > 0
 
 
@@ -141,7 +155,7 @@ def test_optimistic_preemption_matches_jax_engine():
     want = _serve(jeng, JRequest, work)
     got = _serve(teng, Request, work)
     assert teng.stats["preemptions"] > 0
-    assert teng.stats == {k: jeng.stats[k] for k in teng.stats}
+    assert shared_stats(teng, jeng) == dict(jeng.stats)
     _assert_greedy_parity(jeng, want, got, work)
     roomy = _port("qwen1.5-0.5b", None, max_batch=2, max_len=64,
                   page_size=8, prefix_sharing=False)
@@ -178,7 +192,7 @@ def test_cow_prefix_fork_matches_jax_engine():
         outs.append({r.rid: r.generated for r in eng.run_to_completion()})
     assert teng.stats["cow_forks"] >= 1 and teng.stats["prefix_hits"] >= 1
     assert teng.stats["retained_hits"] >= 1
-    assert teng.stats == {k: jeng.stats[k] for k in teng.stats}
+    assert shared_stats(teng, jeng) == dict(jeng.stats)
     assert retained[0] == retained[1] and len(retained[1]) == 3
     # the long prompts took all 8 pages: the donor's retained pages were
     # evicted and its blocks left the prefix index

@@ -48,6 +48,7 @@ from repro_torch.models.model import init_paged_cache  # noqa: E402
 from repro_torch.quant.config import QuantConfig  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from test_torch_serving import shared_stats  # noqa: E402
 
 LOGIT_TOL = 1e-2
 WIDE = dict(d_model=256, head_dim=64, d_ff=512, vocab=256)
@@ -438,7 +439,7 @@ def test_speculative_serving_matches_jax(target, k):
             top2 = np.sort(lf)[-2:]
             assert top2[1] - top2[0] <= LOGIT_TOL * np.abs(lf).max()
             return
-    assert teng.stats == {key: jspec.stats[key] for key in teng.stats}
+    assert shared_stats(teng, jspec) == dict(jspec.stats)
 
 
 @functools.lru_cache(maxsize=None)
