@@ -189,19 +189,17 @@ def make_ragged_serve_step(cfg: ArchConfig, max_len: int):
     return ragged_serve_step
 
 
-def make_batched_prefill_step(cfg: ArchConfig, max_len: int,
-                              max_batch: int, kv_bits=None):
+def make_batched_prefill_step(cfg: ArchConfig, max_len: int, kv_bits=None):
     """Bucket-padded batched prefill for the ring: the prompts run
-    through ONE forward into a fresh ring (padding at position -1 stays
-    masked), then each valid row replaces its target slot's row of the
-    engine's ring, on the device (each slot takes the first valid row
-    mapped to it)."""
+    through ONE forward into a fresh ring of their rows (padding at
+    position -1 stays masked), then each row replaces its target slot's
+    row of the engine's ring, on the device."""
 
-    def batched_prefill_step(params, tokens, lens, slot_map, valid, cache,
+    def batched_prefill_step(params, tokens, lens, slot_map, cache,
                              generator, temperature):
-        """tokens [Nb, Lb] right-padded; lens [Nb]; slot_map [Nb] target
-        slot of each row; valid [Nb] bool. Returns the first generated
-        id per row, -1 for padding rows."""
+        """tokens [N, Lb] right-padded, a row a request; lens [N];
+        slot_map [N] the distinct target slot of each row. Returns the
+        first generated id per row."""
         nb, lb = tokens.shape
         dev = tokens.device
         t_idx = torch.arange(lb, device=dev)[None, :]
@@ -209,18 +207,11 @@ def make_batched_prefill_step(cfg: ArchConfig, max_len: int,
         fresh = init_cache(cfg, nb, max_len, kv_bits=kv_bits, device=dev)
         logits = forward(params, tokens, cfg, positions=pos, cache=fresh,
                          cache_index=0)
-        last = logits[torch.arange(nb, device=dev),
-                      (lens - 1).clamp(min=0)]
-        tok0 = sample_tokens(last, generator, temperature)
-        match = valid[None, :] & (
-            slot_map[None, :] == torch.arange(max_batch, device=dev)[:, None])
-        has = match.any(dim=1)
-        src = torch.argmax(match.to(torch.int32), dim=1)
+        last = logits[torch.arange(nb, device=dev), (lens - 1).clamp(min=0)]
         for ring, filled in zip(cache["layers"], fresh["layers"]):
             for name, c in ring.items():
-                keep = has.reshape((max_batch,) + (1,) * (c.ndim - 1))
-                c.copy_(torch.where(keep, filled[name][src], c))
-        return torch.where(valid, tok0, -1)
+                c.index_copy_(0, slot_map, filled[name])
+        return sample_tokens(last, generator, temperature)
 
     return batched_prefill_step
 
@@ -254,19 +245,20 @@ def make_paged_ragged_serve_step(cfg: ArchConfig, max_len: int,
 
 
 def make_paged_prefill_step(cfg: ArchConfig, page_size: int):
-    """Bucket-padded batched prefill writing straight into the page pool.
+    """Bucket-padded batched prefill writing straight into the page pool,
+    a row a request.
 
     Each row carries its UNSHARED prompt suffix, written from its first
     unshared position ``starts[row]``; shared prefix pages are in the
     row's table, so the suffix attends to them without rewriting them.
-    Padding tokens and padding rows (table all -1) write nothing.
+    Padding tokens (position -1) write nothing.
     """
 
-    def paged_prefill_step(params, tokens, lens, starts, page_table, valid,
-                           cache, generator, temperature):
-        """tokens [Nb, Lb] right-padded; lens, starts [Nb]; page_table
-        [Nb, n_pp]; valid [Nb] bool. Writes K/V into ``cache`` in place;
-        returns the first generated id per row, -1 for padding rows."""
+    def paged_prefill_step(params, tokens, lens, starts, page_table, cache,
+                           generator, temperature):
+        """tokens [N, Lb] right-padded; lens, starts [N]; page_table
+        [N, n_pp]. Writes K/V into ``cache`` in place; returns the first
+        generated id per row."""
         lb = tokens.shape[1]
         t_idx = torch.arange(lb, device=tokens.device)[None, :]
         pos = torch.where(t_idx < lens[:, None], starts[:, None] + t_idx, -1)
@@ -274,11 +266,9 @@ def make_paged_prefill_step(cfg: ArchConfig, page_size: int):
             params, tokens, cfg, positions=pos, cache=cache,
             page_table=page_table, page_size=page_size,
         )
-        last_idx = (lens - 1).clamp(min=0)
         last = logits[torch.arange(tokens.shape[0], device=tokens.device),
-                      last_idx]
-        tok0 = sample_tokens(last, generator, temperature)
-        return torch.where(valid, tok0, -1)
+                      (lens - 1).clamp(min=0)]
+        return sample_tokens(last, generator, temperature)
 
     return paged_prefill_step
 

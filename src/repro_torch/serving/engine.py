@@ -6,8 +6,9 @@ scheduling contract is the reference's:
   * fixed ``max_batch`` decode slots; host-side slot state (position,
     last token, active flag, page table) lives in numpy and goes to the
     device once per tick;
-  * admission runs ONE bucket-padded batched prefill over all admitted
-    requests, writing K/V straight into their pages. A prompt with
+  * admission runs ONE bucket-padded batched prefill over the requests
+    it admits, a row each (no row for a slot it leaves empty), writing
+    K/V straight into their pages. A prompt with
     ``len(prompt) >= max_len`` is rejected with ``error`` set;
   * every tick runs ONE position-ragged decode step over the whole slot
     set; attention reads the page pool through the page table with the
@@ -394,7 +395,7 @@ class ServingEngine:
                 cfg, max_len)
             if self._batched_prefill:
                 self._prefill_step = steps_mod.make_batched_prefill_step(
-                    cfg, max_len, max_batch, self._kv_bits)
+                    cfg, max_len, self._kv_bits)
         self.cache = self._init_cache()
         self._gen = torch.Generator(device=self.device).manual_seed(
             seed ^ 0x5EED)
@@ -735,47 +736,37 @@ class ServingEngine:
 
     def _prefill_batch(self, slots: list[int], reqs: list[Request],
                        effs: list[np.ndarray], starts: list[int]):
-        """Admit N requests with ONE forward: each row carries its
-        UNSHARED suffix, right-padded to a shared bucket, written at
-        positions ``start..len-1`` through its slot's page table (paged),
-        or its whole prompt into a fresh ring whose row then replaces its
-        slot's row (ring)."""
-        lens = [len(e) - s for e, s in zip(effs, starts)]
-        lb = _bucket_len(max(lens), self.max_len)
-        nb = self.max_batch
-        tokens = np.zeros((nb, lb), np.int32)
-        lens_a = np.zeros(nb, np.int32)
-        starts_a = np.zeros(nb, np.int32)
-        valid = np.zeros(nb, bool)
+        """Admit N requests with ONE forward over N rows, a row per
+        request in admission order: each row carries its UNSHARED
+        suffix, right-padded to a shared bucket, written at positions
+        ``start..len-1`` through its slot's page table (paged), or its
+        whole prompt into a fresh N-row ring whose rows then replace
+        their slots' rows (ring)."""
+        lens = np.array([len(e) - s for e, s in zip(effs, starts)], np.int64)
+        lb = _bucket_len(int(lens.max()), self.max_len)
+        nb = len(reqs)
+        tokens = np.zeros((nb, lb), np.int64)
         for row, (eff, st) in enumerate(zip(effs, starts)):
             tokens[row, :lens[row]] = eff[st:]
-            lens_a[row] = lens[row]
-            starts_a[row] = st
-            valid[row] = True
-        tokens_t = self._to_device(tokens.astype(np.int64))
-        lens_t = self._to_device(lens_a.astype(np.int64))
+        tokens_t = self._to_device(tokens)
+        lens_t = self._to_device(lens)
         if self.kv_mode == "paged":
             # table truncated to the batch's used page columns (pow2
             # bucket), covering the shared prefix blocks the suffix
             # attends to
             max_blocks = max(-(-len(e) // self.page_size) for e in effs)
             width = self._pow2_width(max_blocks)
-            route = np.full((nb, width), -1, np.int32)
-            for row, slot in enumerate(slots):
-                route[row] = self.page_table[slot, :width]
             args = (self.params, tokens_t, lens_t,
-                    self._to_device(starts_a.astype(np.int64)),
-                    self._to_device(route), self._to_device(valid),
+                    self._to_device(np.array(starts, np.int64)),
+                    self._to_device(self.page_table[slots, :width]),
                     self.cache, self._gen, self.temperature)
         else:
-            route = np.zeros(nb, np.int64)
-            route[:len(slots)] = slots
-            args = (self.params, tokens_t, lens_t, self._to_device(route),
-                    self._to_device(valid), self.cache, self._gen,
-                    self.temperature)
+            args = (self.params, tokens_t, lens_t,
+                    self._to_device(np.array(slots, np.int64)), self.cache,
+                    self._gen, self.temperature)
         with tracing.span("engine.prefill", device=True) as sp:
             tok0 = self._prefill_step(*args)
-        real = sum(lens)
+        real = int(lens.sum())
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens_real"] += real
         self.stats["prefill_tokens_computed"] += nb * lb
