@@ -1,5 +1,6 @@
 """The yardstick's arithmetic: the H100's peaks, the operations and bytes
-of one kernel launch, and the model's operations per token.
+of one kernel launch, and the model's operations per token (counted by
+the configuration's family, ``families/<family>.py``).
 
 Bytes count each input read once and each output written once, at the
 sizes these inputs need; operations count the multiply-adds as two.
@@ -7,6 +8,8 @@ sizes these inputs need; operations count the multiply-adds as two.
 from __future__ import annotations
 
 import math
+
+from perfcells import families
 
 # NVIDIA H100 SXM data sheet, dense (no sparsity), at the full 700 W
 PEAK_BF16_FLOPS = 989e12
@@ -51,31 +54,17 @@ def paged_decode_attention(contexts, pages, page_size: int, n_heads: int,
 def matmul_params_per_token(arch: dict, head: bool = True) -> int:
     """Weights one token multiplies through (routed experts: top_k of
     them, and the router), the LM head unless ``head`` is False; the
-    embedding gather is no matmul."""
-    d, h, hkv, dh = (arch["d_model"], arch["n_heads"], arch["n_kv_heads"],
-                     arch["head_dim"])
-    per_layer = d * h * dh + 2 * d * hkv * dh + h * dh * d
-    n_mats = 3 if arch["activation"] == "swiglu" else 2
-    if arch["family"] == "moe":
-        per_layer += (arch["top_k"] * d * arch["expert_d_ff"] * n_mats
-                      + d * arch["n_experts"])
-    else:
-        per_layer += d * arch["d_ff"] * n_mats
-    return arch["n_layers"] * per_layer + (d * arch["vocab"] if head else 0)
+    embedding gather is no matmul. The configuration's family counts."""
+    return families.load(arch["family"]).matmul_params_per_token(arch, head)
 
 
 def token_flops(arch: dict, context: int) -> float:
     """Model operations of one token that attends to ``context`` keys."""
-    attn = 4.0 * arch["n_layers"] * arch["n_heads"] * arch["head_dim"]
-    return 2.0 * matmul_params_per_token(arch) + attn * context
+    return families.load(arch["family"]).token_flops(arch, context)
 
 
 def prefill_flops(arch: dict, start: int, length: int) -> float:
     """Model operations of prefilling positions start .. start+length-1,
     each attending causally to every position before it and itself; the
     LM head runs for the last position alone (its first token)."""
-    ctx = length * start + length * (length + 1) / 2
-    attn = 4.0 * arch["n_layers"] * arch["n_heads"] * arch["head_dim"]
-    head = 2.0 * arch["d_model"] * arch["vocab"]
-    return (2.0 * matmul_params_per_token(arch, head=False) * length + head
-            + attn * ctx)
+    return families.load(arch["family"]).prefill_flops(arch, start, length)

@@ -11,6 +11,11 @@ The window drives the program's front door: ``AsyncServer`` (FIFO, no
 deadline) over ``ServingEngine``, paged KV, greedy. ``clients`` closed-loop
 clients send the mix's requests in order, each its next one when its
 previous one has finished; the window opens with the first send.
+
+A traced run (``--trace 1``) also turns the program's own recorder
+(``repro_torch.tracing``) on from just before the server starts to the
+window's end; its records, with the profiled stretch's events, reach the
+per-layer readers as ``t["program"]``.
 """
 from __future__ import annotations
 
@@ -28,18 +33,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from perfcells import families
 from perfcells import reference as reference_mod
 from perfcells import traffic as traffic_mod
 from perfcells import weights as weights_mod
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-ARCH_FIELDS = (
-    "family", "n_layers", "d_model", "vocab", "n_heads", "n_kv_heads",
-    "head_dim", "qkv_bias", "qk_norm", "rope_theta", "d_ff", "activation",
-    "n_experts", "top_k", "expert_d_ff", "capacity_factor",
-    "moe_group_tokens", "norm_eps", "tie_embeddings",
-)
 REQUEST_POOL = 4096          # requests generated for a run
 FIRST_TOKEN_WAIT_S = 120.0   # after the window, for first tokens still due
 PROFILE_S = 10.0             # the profiled stretch closes the window:
@@ -83,10 +83,14 @@ def cell_metrics(bench: dict, name: str) -> tuple:
 
 
 def arch_config(config: dict):
+    """The program's ``ArchConfig``: every key of ``config`` that is one
+    of its fields."""
     from repro_torch.configs.base import ArchConfig
 
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    fields -= {"name", "scan_layers"}
     return ArchConfig(name=config["name"], scan_layers=False,
-                      **{k: config[k] for k in ARCH_FIELDS if k in config})
+                      **{k: v for k, v in config.items() if k in fields})
 
 
 def quant_config(config: dict):
@@ -103,24 +107,41 @@ def engine_max_len(config: dict, mix: dict) -> int:
     return -(-traffic_mod.max_len(mix) // ps) * ps
 
 
-def build_engine(config: dict, mix: dict, seed: int, device):
-    """The engine over the seed's weights; the unquantized weights are
-    freed once it has packed them."""
+def serving_engine(config: dict, mix: dict, seed: int, device, params,
+                   quant=None):
+    """The program's engine over ``params`` with the cell's serving
+    settings; ``quant`` (``quant_config``) packs them, None takes them
+    as they are (packed already, or bfloat16)."""
     from repro_torch.serving.engine import ServingEngine
 
-    made = weights_mod.make(config, seed, device)
-    params = weights_mod.program_params(config, made, device)
-    eng = ServingEngine(
-        arch_config(config), params, quant=quant_config(config),
+    return ServingEngine(
+        arch_config(config), params, quant=quant,
         max_batch=mix["max_batch"], max_len=engine_max_len(config, mix),
         page_size=config["serving"]["page_size"],
         seed=traffic_mod.sub_seed(seed, "engine") & 0x7FFFFFFF,
         temperature=config["serving"]["temperature"],
         prefix_sharing=mix["prefix_sharing"],
         prefix_retain=mix["prefix_retain"] or None, device=device)
+
+
+def default_build_engine(config: dict, mix: dict, seed: int, device):
+    """The engine over the seed's weights, drawn whole and packed by the
+    engine; the unquantized weights are freed once it has packed them."""
+    made = weights_mod.make(config, seed, device)
+    params = weights_mod.program_params(config, made, device)
+    eng = serving_engine(config, mix, seed, device, params,
+                         quant_config(config))
     del made, params
     gc.collect()
     return eng
+
+
+def build_engine(config: dict, mix: dict, seed: int, device):
+    """The engine over the seed's weights: the family's ``build_engine``
+    where its file has one, else ``default_build_engine``."""
+    family = families.load(config["family"])
+    build = getattr(family, "build_engine", default_build_engine)
+    return build(config, mix, seed, device)
 
 
 def warm_up(eng, mix: dict, prefix: np.ndarray, seed: int, vocab: int):
@@ -228,7 +249,8 @@ def end_to_end(sent: list, t0: float, t1: float) -> dict:
     return {
         "tokens_per_s": len(tokens) / (t1 - t0),
         "tpot_p95_ms": percentile(gaps, 95) * 1e3,
-        "ttft_p90_ms": percentile(ttft, 90) * 1e3,
+        "ttft_p50_ms": percentile(ttft, 50) * 1e3,
+        "ttft_p85_ms": percentile(ttft, 85) * 1e3,
     }
 
 
@@ -352,10 +374,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     loop.set_default_executor(pool)
     try:
         if trace:
+            from repro_torch import tracing
+
             from perfcells.spans import Spans
 
             spans = Spans(eng, config, device, clock,
                           -min(PROFILE_S, PROFILE_SHARE * seconds), 0.0)
+            tracing.enable(clock)
         wait_first = any(m["name"].startswith("ttft")
                          for m in cell.end_to_end)
         t0, t1, sent = loop.run_until_complete(_serve(
@@ -363,8 +388,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     finally:
         if spans is not None:
             spans.close()
+            tracing.disable()
         loop.close()
         pool.shutdown(wait=True)
+    program = (tracing.collect(spans.stretch.events) if spans is not None
+               else None)
     setup_s = t0 - t_start
     stats = {k: eng.stats[k] - stats0[k] for k in eng.stats}
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
@@ -404,7 +432,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             "arch": config, "stats": stats, "stretch": stretch or {},
             "launches": launches, "t0": t0, "t1": t1,
             "requests": [s.request for s in window if s.request is not None],
-            **timings,
+            "program": program, **timings,
         }
         metrics = {}
         for m in cell.per_layer:
@@ -429,7 +457,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     result["check"] = check
     return Run(result, sent, checked, gaps,
                {"timings": timings, "stretch": stretch, "launches": launches,
-                "stats": stats, "e2e": e2e, "setup_phases": phases},
+                "stats": stats, "e2e": e2e, "setup_phases": phases,
+                "program": program},
                logits, seed)
 
 

@@ -1,17 +1,16 @@
 """The program's own spans and counters (``repro_torch.tracing``) in a
-cell's run, beside the benchmark's wrappers (``spans.py``), until the
-harness turns the tracer on itself.
+cell's run, beside the benchmark's wrappers (``spans.py``): the pairing
+that shows the two measure the same calls, and the tracer's cost.
 
 ``run(cell, seed, seconds, trace, device, t_start)`` runs the harness's
-``run_cell`` with the tracer on. In a traced run a ``Traced`` takes the
-place of ``spans.Spans``: it turns the tracer on as the window opens,
-pairs each decode and prefill call the wrappers record with the
-program's span around that call, counts the program's launches over the
-profiled stretch, and collects the tracer with the stretch's events
-once the program stops. In an untraced run the tracer runs from just
+``run_cell`` with the tracer on. In a traced run the harness turns the
+tracer on itself, and a ``Traced`` takes the place of ``spans.Spans``:
+it pairs each decode and prefill call the wrappers record with the
+program's span around that call and counts the program's launches over
+the profiled stretch. In an untraced run the tracer runs from just
 before the window to the end (what it costs when on).
 ``readings(...)`` reads from the program's records what the per-layer
-metrics that need them would read.
+metrics that read them read, and more (``idle_by_span``).
 
     PYTHONPATH=src python3 -m perfcells.program_spans --workload <cell>
         --seed <n> --seconds <s> --trace <0|1> [--dump FILE]
@@ -48,12 +47,10 @@ def by_launcher(counts: dict) -> dict:
 
 
 class Traced(spans_mod.Spans):
-    """``Spans`` with the program's tracer on over the window."""
+    """``Spans`` that pairs its records with the program's."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.rec = None
-        self.program = None
         self.decode_pairs = []      # (program span id, index in .decode)
         self.prefill_pairs = []     # (span id, slice of .admitted)
         self.stretch_launches = None
@@ -61,24 +58,22 @@ class Traced(spans_mod.Spans):
         self._at_start: dict = {}
         self._prefill_span = None
 
-    def open_window(self, t_close: float) -> None:
-        super().open_window(t_close)
+    def _step(self):
         from repro_torch import tracing
 
-        self.rec = tracing.enable(self.clock)
-
-    def _step(self):
         # the stretch starts inside this call (as Spans decides) before
         # the step launches anything
-        if (self.rec is not None and self._state == "pending"
+        if (tracing.on and self._state == "pending"
                 and self.window and self.clock() >= self._from):
-            self._at_start = by_launcher(self.rec.counts)
+            self._at_start = by_launcher(tracing._recorder.counts)
             self.stretch_times[0] = self.clock()
         return super()._step()
 
     def _stop_stretch(self):
-        if self.rec is not None:
-            now = by_launcher(self.rec.counts)
+        from repro_torch import tracing
+
+        if tracing.on:
+            now = by_launcher(tracing._recorder.counts)
             self.stretch_launches = {
                 k: now[k] - self._at_start.get(k, 0) for k in now
                 if now[k] > self._at_start.get(k, 0)}
@@ -108,13 +103,6 @@ class Traced(spans_mod.Spans):
 
         self._prefill_span = tracing.current()
         return super()._prefill_step(*args)
-
-    def close(self) -> None:
-        super().close()
-        if self.rec is not None and self.program is None:
-            from repro_torch import tracing
-
-            self.program = tracing.collect(self.stretch.events)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device,
@@ -149,7 +137,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     finally:
         spans_mod.Spans = saved
         tracing.disable()
-    return r, made[0].program, made[0]
+    return r, r.details["program"], made[0]
 
 
 def readings(program: dict, run) -> dict:

@@ -1,5 +1,7 @@
 """The plain reference: the configuration's forward pass in float32, from
-the seed's weights, with no kernel, no cache and no batching.
+the seed's weights, with no kernel, no cache and no batching. Its layer
+is the configuration's family's (``families/<family>.py``); what is
+here is the frame around it and what the layers share.
 
 It imports nothing of the program. It quantizes the seed's weights
 itself (symmetric, one scale per output channel over the reduction
@@ -7,7 +9,8 @@ axis, every matmul weight of at least ``min_values`` values, as the
 configuration states) and multiplies the dequantized weights in float32
 with TF32 off. It runs layer by layer over every
 compared sequence, so each layer's weights are dequantized once and one
-layer's float32 weights are live at a time. A prefix that every
+layer's float32 weights are live at a time (one layer's bfloat16 ones
+too, where the family draws a layer at a time). A prefix that every
 sequence shares is run once and its keys and values are reused.
 
 ``precision`` names what the activations are held in: ``"f32"`` is the
@@ -22,6 +25,7 @@ import math
 
 import torch
 
+from perfcells import families
 from perfcells import weights as weights_mod
 
 FP8_MAX = 448.0
@@ -100,108 +104,48 @@ class Segment:
 
 
 class Reference:
-    """The forward pass of one configuration under one seed."""
+    """The forward pass of one configuration under one seed; the layer is
+    the family's (``families/<family>.py``)."""
 
     def __init__(self, arch: dict, seed: int, device, precision="f32"):
         self.arch, self.seed, self.device = arch, seed, device
         self.rnd = _rounder(precision)
         self.bits = arch["quant"]["bits"]
         self.min_values = arch["quant"]["min_values"]
+        self.family = families.load(arch["family"])
 
-    def _dequantize(self, w: torch.Tensor, axis: int) -> torch.Tensor:
+    def weight(self, w: torch.Tensor, axis: int) -> torch.Tensor:
+        """A matmul weight as the reference multiplies it: float32, after
+        the configuration's quantization over ``axis`` where it has
+        ``min_values`` values or more."""
         if w.numel() < self.min_values:
             return w.to(torch.float32)
         return dequantize(w, self.bits, axis)
-
-    def _layer_weights(self, made: dict, i: int) -> dict:
-        out = {}
-        for kind, t in made.items():
-            if not kind.startswith("blocks."):
-                continue
-            leaf = kind.split(".")[-1]
-            if leaf == "router":
-                out[leaf] = t[i].to(torch.float32)
-            else:
-                out[leaf] = self._dequantize(t[i], 0 if t[i].ndim == 2 else 1)
-        return out
-
-    def _attention(self, w: dict, seg: Segment) -> torch.Tensor:
-        a = self.arch
-        x = self.rnd(rms_norm(seg.h, a["norm_eps"]))
-        t = x.shape[0]
-        q = (x @ w["wq"]).reshape(t, a["n_heads"], a["head_dim"])
-        k = (x @ w["wk"]).reshape(t, a["n_kv_heads"], a["head_dim"])
-        v = (x @ w["wv"]).reshape(t, a["n_kv_heads"], a["head_dim"])
-        pos = seg.positions
-        q = rope(q, pos, a["rope_theta"])
-        k = self.rnd(rope(k, pos, a["rope_theta"]))
-        v = self.rnd(v)
-        seg.kv = (k, v, pos)
-        if seg.prefix is not None:
-            pk, pv, ppos = seg.prefix.kv
-            k, v = torch.cat([pk, k]), torch.cat([pv, v])
-            pos_k = torch.cat([ppos, pos])
-        else:
-            pos_k = pos
-        o = attend(q, k, v, pos, pos_k).reshape(t, -1)
-        return self.rnd(o) @ w["wo"]
-
-    def _mlp(self, w: dict, x: torch.Tensor) -> torch.Tensor:
-        a = self.arch
-        if a["activation"] == "sq_relu":
-            hid = torch.relu(x @ w["wu"]) ** 2
-        else:
-            hid = torch.nn.functional.silu(x @ w["wg"]) * (x @ w["wu"])
-        return self.rnd(hid) @ w["wd"]
-
-    def _moe(self, w: dict, x: torch.Tensor) -> torch.Tensor:
-        """Top-k routed experts, every routed token kept."""
-        a = self.arch
-        probs = torch.softmax(x @ w["router"], dim=-1)
-        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-        gates, experts = vals[:, :a["top_k"]], idx[:, :a["top_k"]]
-        if a.get("norm_topk_prob", False):
-            gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-        out = torch.zeros_like(x)
-        for e in range(a["n_experts"]):
-            rows, slot = torch.nonzero(experts == e, as_tuple=True)
-            if rows.numel() == 0:
-                continue
-            xe = x[rows]
-            hid = (torch.nn.functional.silu(xe @ w["w_gate"][e])
-                   * (xe @ w["w_up"][e]))
-            out.index_add_(0, rows, (self.rnd(hid) @ w["w_down"][e])
-                           * gates[rows, slot][:, None])
-        return out
-
-    def _block(self, w: dict, seg: Segment) -> None:
-        a = self.arch
-        seg.h = seg.h + self._attention(w, seg)
-        x = self.rnd(rms_norm(seg.h, a["norm_eps"]))
-        ff = self._moe(w, x) if a["family"] == "moe" else self._mlp(w, x)
-        seg.h = seg.h + ff
 
     @torch.no_grad()
     def logits(self, segments: list, rows: list) -> list:
         """Run ``segments`` (prefixes before the segments that use them)
         and return, for each (segment, row indices) of ``rows``, the
         float32 logits at those rows."""
-        a = self.arch
+        a, fam = self.arch, self.family
         saved = (torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            made = weights_mod.make(a, self.seed, self.device)
+            embed = weights_mod.make(a, self.seed, self.device,
+                                     ["embed"])["embed"]
             for seg in segments:
-                seg.h = made["embed"][seg.tokens].to(torch.float32)
-            for i in range(a["n_layers"]):
-                w = self._layer_weights(made, i)
+                seg.h = embed[seg.tokens].to(torch.float32)
+            del embed
+            for leaves in weights_mod.layers(a, self.seed, self.device):
+                w = fam.reference_layer(self, leaves)
+                del leaves
                 for seg in segments:
-                    self._block(w, seg)
+                    fam.block(self, w, seg)
                 del w
-            head = self._dequantize(made.pop("lm_head"), 0)
-            del made
+            head = self.weight(weights_mod.make(
+                a, self.seed, self.device, ["lm_head"])["lm_head"], 0)
             out = []
             for seg, idx in rows:
                 x = rms_norm(seg.h[idx], a["norm_eps"])

@@ -1,22 +1,14 @@
 """Cells cut to a size the CPU runs in seconds, for the benchmark's tests:
-the cell's own configuration and mix with every width and count shrunk.
+the cell's own configuration and mix with every width and count shrunk
+(the widths are the family's ``SMALL``).
 No number of such a run is a device number."""
 from __future__ import annotations
 
 import copy
 import json
 
-from perfcells import harness, traffic
+from perfcells import families, harness, traffic
 
-SMALL_ARCH = {
-    # capacity_factor = n_experts / top_k: an expert can take every token
-    # of its group, so no token is dropped, as in the reference
-    "moe": dict(n_layers=2, d_model=64, vocab=128, n_heads=4, n_kv_heads=4,
-                head_dim=16, d_ff=96, n_experts=8, top_k=4, expert_d_ff=96,
-                capacity_factor=2.0),
-    "dense": dict(n_layers=2, d_model=64, vocab=128, n_heads=4,
-                  n_kv_heads=2, head_dim=16, d_ff=128),
-}
 SMALL_MIX = {
     "olmoe-1b-7b.chat-decode": dict(
         clients=4, max_batch=4, block=4,
@@ -44,10 +36,47 @@ MOE_DEQUANT = {"name": "moe_dequant_share", "unit": "%", "better": "lower",
                "moves": "tokens_per_s"}
 
 
+def small_mix(name: str, mix: dict) -> dict:
+    """What cell ``name`` changes in its mix ``mix`` at the small size:
+    its ``SMALL_MIX`` entry, or, for a cell without one, the mix's own
+    length distributions a sixteenth as long (prompts 4-192, answers
+    2-16 tokens), at most 4 clients and a shared prefix of at most 64."""
+    if name in SMALL_MIX:
+        return SMALL_MIX[name]
+    n = min(4, int(mix["clients"]))
+
+    def shrunk(dist, lo, hi):
+        out = dict(dist)
+        for key in ("min", "max", "median"):
+            if key in dist:
+                out[key] = min(hi, max(lo, int(dist[key]) // 16))
+        out["max"] = max(out["max"], out["min"])
+        return out
+
+    out = dict(clients=n, max_batch=n, block=min(n, int(mix["block"])),
+               prompt=shrunk(mix["prompt"], 4, 192),
+               output=shrunk(mix["output"], 2, 16))
+    if mix.get("shared_prefix"):
+        out.update(shared_prefix=min(64, int(mix["shared_prefix"])),
+                   prefix_chunk=32)
+    return out
+
+
+def shrink(cell: harness.Cell, limit: float = 1.0) -> harness.Cell:
+    """``cell`` at the small size, in place: its family's ``SMALL``
+    widths, drawn wider (std 0.1), so that at 64 wide the logits spread
+    as a full-width model's do, its mix by ``small_mix``, and every
+    finished request compared."""
+    cell.config.update(families.load(cell.config["family"]).SMALL,
+                       init_std=0.1)
+    cell.mix.update(small_mix(cell.name, cell.mix), compare_requests=1000)
+    cell.limits = {"logit_gap": limit}
+    return cell
+
+
 def small_cell(name: str, limit: float = 1.0) -> harness.Cell:
-    """``name`` at a small size. Its weights are drawn wider than the
-    configuration's (std 0.1), so that at 64 wide the logits spread as
-    a full-width model's do, and every finished request is compared."""
+    """Cell ``name`` of ``BENCHMARK.json`` (or ``MOE_CELL``) at the small
+    size (``shrink``)."""
     if name == MOE_CELL:
         e2e, per_layer = harness.cell_metrics(harness.load_benchmark(),
                                               MOE_LIKE)
@@ -58,7 +87,4 @@ def small_cell(name: str, limit: float = 1.0) -> harness.Cell:
                             per_layer + [MOE_DEQUANT])
     else:
         cell = copy.deepcopy(harness.load_cell(name))
-    cell.config.update(SMALL_ARCH[cell.config["family"]], init_std=0.1)
-    cell.mix.update(SMALL_MIX[name], compare_requests=1000)
-    cell.limits = {"logit_gap": limit}
-    return cell
+    return shrink(cell, limit)

@@ -5,8 +5,9 @@ profiler, the shapes of every kernel launch. The timing events leave the
 stretch out, so the profiler's own cost reaches no metric but those it
 reads.
 
-It wraps names the program keeps private (``ServingEngine._decode_step``,
-``_prefill_step``, ``_prefill_batch``, ``step``) and patches
+It wraps names the program keeps private, those of
+``ServingEngine._decode_step``, ``_prefill_step``, ``_prefill_batch``
+and ``step`` that the engine has, and patches
 ``models.layers.materialize`` and the two kernel entry points of
 ``kernels.ops``; ``close`` puts every one back. A later change that gives
 the program spans of its own replaces these wrappers.
@@ -19,6 +20,12 @@ import numpy as np
 import torch
 
 from perfcells import costs, profiling
+
+
+# engine attribute -> the wrapper that takes its place
+ENGINE_CALLS = {"step": "_step", "_decode_step": "_decode_step",
+                "_prefill_step": "_prefill_step",
+                "_prefill_batch": "_prefill_batch"}
 
 
 class HostMark:
@@ -57,23 +64,23 @@ class Spans:
         self._dequant = None
         self._admitting = None
         self._expect_attention = (0.0, 0.0)
-        self._saved = dict(
-            step=eng.step, decode=eng._decode_step,
-            prefill_step=eng._prefill_step, prefill=eng._prefill_batch,
-            materialize=layers.materialize, matmul=ops.samd_matmul,
-            attention=ops.paged_decode_attention)
-        eng.step = self._step
-        eng._decode_step = self._decode_step
-        eng._prefill_step = self._prefill_step
-        eng._prefill_batch = self._prefill_batch
+        self._saved = dict(materialize=layers.materialize,
+                           matmul=ops.samd_matmul,
+                           attention=ops.paged_decode_attention)
+        # a ring-mode engine (the recurrent families) has no
+        # _prefill_step: only what the engine has is wrapped
+        self._wrapped = [name for name in ENGINE_CALLS if hasattr(eng, name)]
+        for name in self._wrapped:
+            self._saved[name] = getattr(eng, name)
+            setattr(eng, name, getattr(self, ENGINE_CALLS[name]))
         layers.materialize = self._materialize
         ops.samd_matmul = self._matmul
         ops.paged_decode_attention = self._attention
 
     def close(self) -> None:
-        s, eng = self._saved, self.eng
-        eng.step, eng._decode_step = s["step"], s["decode"]
-        eng._prefill_step, eng._prefill_batch = s["prefill_step"], s["prefill"]
+        s = self._saved
+        for name in self._wrapped:
+            setattr(self.eng, name, s[name])
         self._layers.materialize = s["materialize"]
         self._ops.samd_matmul = s["matmul"]
         self._ops.paged_decode_attention = s["attention"]
@@ -133,11 +140,11 @@ class Spans:
 
     def _decode_step(self, *args):
         if not (self._timing or self._recording):
-            return self._saved["decode"](*args)
+            return self._saved["_decode_step"](*args)
         eng, a = self.eng, self.arch
         rows = np.nonzero(eng.active)[0]
         contexts = [int(eng.slot_pos[i]) + 1 for i in rows]
-        if self._recording:
+        if self._recording and eng.kv_mode == "paged":
             pages = [eng.page_table[i].tolist() for i in rows]
             flops, nbytes = costs.paged_decode_attention(
                 contexts, pages, eng.page_size, a["n_heads"],
@@ -145,9 +152,9 @@ class Spans:
             self._expect_attention = (flops, nbytes)
         if not self._timing:
             with torch.profiler.record_function("perfcells.decode_step"):
-                return self._saved["decode"](*args)
+                return self._saved["_decode_step"](*args)
         self._dequant = []
-        out, ev = self._timed(self._saved["decode"], *args)
+        out, ev = self._timed(self._saved["_decode_step"], *args)
         self.decode.append({"events": ev, "contexts": contexts,
                             "dequant": self._dequant})
         self._dequant = None
@@ -159,15 +166,15 @@ class Spans:
         if self.window:
             self.admitted.extend(self._admitting)
         try:
-            return self._saved["prefill"](slots, reqs, effs, starts)
+            return self._saved["_prefill_batch"](slots, reqs, effs, starts)
         finally:
             self._admitting = None
 
     def _prefill_step(self, *args):
         if not self._timing:
             with torch.profiler.record_function("perfcells.prefill_step"):
-                return self._saved["prefill_step"](*args)
-        out, ev = self._timed(self._saved["prefill_step"], *args)
+                return self._saved["_prefill_step"](*args)
+        out, ev = self._timed(self._saved["_prefill_step"], *args)
         self.prefill.append({"events": ev, "spans": self._admitting})
         return out
 

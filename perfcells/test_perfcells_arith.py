@@ -75,7 +75,8 @@ def test_tails_cover_every_sample_and_move_with_a_stall():
     steady = [_sent(np.arange(1, 101) * 0.1) for _ in range(4)]
     base = harness.end_to_end(steady, 0.0, 10.0)
     assert base["tpot_p95_ms"] == pytest.approx(100.0)
-    assert base["ttft_p90_ms"] == pytest.approx(100.0)
+    assert base["ttft_p50_ms"] == pytest.approx(100.0)
+    assert base["ttft_p85_ms"] == pytest.approx(100.0)
     stalled = [_sent(np.concatenate([np.arange(1, 51) * 0.1,
                                      2.0 + np.arange(51, 101) * 0.1]))
                for _ in range(4)]
@@ -94,10 +95,12 @@ def test_a_failed_request_counts_as_never_answered():
     ok = [_sent([0.1]) for _ in range(19)]
     bad = _sent([], max_tokens=1)
     bad.refused = "queue_full"
-    assert harness.end_to_end(ok + [bad], 0, 1)["ttft_p90_ms"] == (
+    assert harness.end_to_end(ok + [bad] * 3, 0, 1)["ttft_p85_ms"] == (
         pytest.approx(100.0))
-    assert harness.end_to_end(ok + [bad] * 3, 0, 1)["ttft_p90_ms"] == (
+    assert harness.end_to_end(ok + [bad] * 4, 0, 1)["ttft_p85_ms"] == (
         math.inf)
+    assert harness.end_to_end(ok + [bad] * 4, 0, 1)["ttft_p50_ms"] == (
+        pytest.approx(100.0))
 
 
 def test_percentile_is_linear_over_all_values():

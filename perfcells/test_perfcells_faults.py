@@ -61,9 +61,10 @@ FAULTS = {"altered_token": _altered_token, "state_unchanged": _state_unchanged,
           "half_batch": _half_batch}
 
 
-def _run(name, fault=None):
-    return harness.run_cell(smoke.small_cell(name, limit=LIMIT), SEED, 1.0,
-                            False, "cpu", time.perf_counter(), fault=fault)
+def _run(name, fault=None, seconds=1.0):
+    return harness.run_cell(smoke.small_cell(name, limit=LIMIT), SEED,
+                            seconds, False, "cpu", time.perf_counter(),
+                            fault=fault)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -76,6 +77,8 @@ def test_sound_run_is_correct(name):
 @pytest.mark.parametrize("fault", list(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_fault_is_not_correct(name, fault):
-    res = _run(name, FAULTS[fault]).result
+    # 2 s: on a loaded machine a 1-s window may finish only requests that
+    # no decode step served, and a decode fault then shows nowhere
+    res = _run(name, FAULTS[fault], seconds=2.0).result
     assert res["correct"] is False
     assert res["check"]["logit_gap"]["value"] > LIMIT

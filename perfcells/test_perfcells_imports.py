@@ -11,19 +11,36 @@ SOURCES = sorted(HERE.rglob("*.py"))
 JAX = {"jax", "jaxlib", "flax", "repro"}
 
 
-def imported(path: Path) -> set:
+def imported(path: Path, skip=()) -> set:
     """Every module an import statement of ``path`` names (a relative
-    import comes out as its dots and name)."""
+    import comes out as its dots and name), but those in the bodies of
+    the functions named in ``skip``."""
     out = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    tree = ast.parse(path.read_text(), str(path))
+    skipped = {id(n) for f in ast.walk(tree)
+               if isinstance(f, ast.FunctionDef) and f.name in skip
+               for n in ast.walk(f)}
+    for node in ast.walk(tree):
+        if id(node) in skipped:
+            continue
         if isinstance(node, ast.Import):
             out.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             mod = "." * node.level + (node.module or "")
             out.add(mod)
-            if mod == "perfcells":
-                out.update(f"perfcells.{a.name}" for a in node.names)
+            if mod.split(".")[0] == "perfcells":
+                out.update(f"{mod}.{a.name}" for a in node.names)
     return out
+
+
+def source(mod: str):
+    """The file of a module of the benchmark, or None (a name that an
+    import takes from a module)."""
+    rel = mod.split(".", 1)[1].replace(".", "/")
+    for path in (HERE / f"{rel}.py", HERE / rel / "__init__.py"):
+        if path.is_file():
+            return path
+    return None
 
 
 def top(name: str) -> str:
@@ -44,19 +61,26 @@ def test_whole_names_are_compared():
 
 
 def test_reference_imports_nothing_of_the_program():
-    seen, todo = set(), ["perfcells.reference"]
+    # the family files, which the reference loads by path, are walked
+    # too; a family's build_engine is the program's side
+    seen = set()
+    todo = [(HERE / "reference.py", "perfcells.reference")]
+    todo += [(p, f"perfcells.families.{p.stem}")
+             for p in sorted((HERE / "families").glob("*.py"))]
     while todo:
-        mod = todo.pop()
+        path, mod = todo.pop()
         if mod in seen:
             continue
         seen.add(mod)
-        path = HERE / (mod.split(".", 1)[1].replace(".", "/") + ".py")
-        for m in imported(path):
+        for m in imported(path, skip=("build_engine",)):
             assert top(m) not in JAX | {"repro_torch"}, (mod, m)
             assert not m.startswith("."), (mod, m)
             if top(m) == "perfcells" and m != "perfcells":
-                todo.append(m)
-    assert {"perfcells.weights", "perfcells.traffic"} <= seen
+                found = source(m)
+                if found is not None:
+                    todo.append((found, m))
+    assert {"perfcells.weights", "perfcells.traffic", "perfcells.families",
+            "perfcells.families._shared"} <= seen
 
 
 def test_nothing_reads_the_old_benchmarks():

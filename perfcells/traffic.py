@@ -11,7 +11,10 @@ quantiles ``(i + 0.5) / block`` of their distribution, so each block of
 output lengths; the seed shuffles the lengths within each block and
 draws the token ids. A run sends its requests in list order, whichever
 client is free, so any whole number of blocks is the same work on every
-seed.
+seed. Where the order of the lengths changes the work (which requests
+arrive together, and so are admitted together), a mix's ``order_seed``
+draws that order in place of the run's seed: every seed then sends the
+same lengths in the same order, with its own token ids.
 
 The first ``clients`` requests open the run with every slot busy at
 once. Their output lengths are spread over ``[1, output max]`` instead
@@ -96,11 +99,15 @@ def requests(mix: dict, seed: int, vocab: int, count: int) -> list[Req]:
         dict(mix["output"], min=1, dist="uniform"), int(mix["clients"]))
     prefix = shared_prefix(mix, seed, vocab)
     rng = np.random.default_rng(sub_seed(seed, "requests"))
-    opening = [opening[j] for j in rng.permutation(len(opening))]
+    order = rng
+    if "order_seed" in mix:
+        order = np.random.default_rng(sub_seed(int(mix["order_seed"]),
+                                               "order"))
+    opening = [opening[j] for j in order.permutation(len(opening))]
     out: list[Req] = []
     while len(out) < count:
-        p_order = rng.permutation(block)
-        o_order = rng.permutation(block)
+        p_order = order.permutation(block)
+        o_order = order.permutation(block)
         for j in range(block):
             i = len(out)
             if i >= count:
